@@ -1,10 +1,10 @@
 #!/usr/bin/env python
-"""Driver benchmark entry: prints ONE JSON line.
+"""Benchmark entry: prints the card, then ONE JSON line.
 
-Metric: effective Mrays/s at 1080p for the full default pipeline (adaptive
-ladder, RK45 off/Euler on per default config, disk + redshift + sky + bloom
-+ ACES + FXAA) on the available TPU chip.  vs_baseline is against the
-BASELINE.md target of 50 Mrays/s/chip.
+Metric: effective Mrays/s at 1080p for the full default pipeline
+(adaptive ladder, Euler, disk + redshift + sky + bloom + ACES + FXAA) on
+the Pallas kernel path of one GPU, with the pipeline parity and gradient
+gates beside it.  Fails without a GPU.
 """
 
 import json
@@ -14,24 +14,14 @@ import sys
 def main() -> int:
     import bhx
 
-    bhx.enable_compile_cache()  # bench entry point opts in
-    from bhx.bench import grad_check, parity_check, run_bench
+    bhx.enable_compile_cache()
+    from bhx.bench import card_info, grad_check, parity_check, run_bench
 
+    print(card_info(), flush=True)
     result = run_bench(width=1918, height=1081, iters=5)
-    parity = parity_check()
-    grad = grad_check()
-    out = {
-        "metric": result["metric"],
-        "value": result["value"],
-        "unit": result["unit"],
-        "vs_baseline": result["vs_baseline"],
-        "detail": {
-            k: result[k]
-            for k in ("best_s", "mean_s", "compile_s", "devices", "device_kind")
-        }
-        | parity
-        | grad,
-    }
+    out = dict(result)
+    out.update(parity_check())
+    out.update(grad_check())
     print(json.dumps(out))
     return 0
 

@@ -1,13 +1,13 @@
-"""bhx — TPU-native differentiable black-hole renderer.
+"""bhx — differentiable black-hole renderer in JAX.
 
 A from-scratch JAX/XLA/Pallas re-design of the capabilities of the reference
-renderer ``cleggacus/bhusie`` (Rust + wgpu/WGSL real-time ray tracer, see
-/root/reference): per-pixel null-geodesic integration around a black hole,
+renderer ``cleggacus/bhusie`` (Rust + wgpu/WGSL real-time ray tracer):
+per-pixel null-geodesic integration around a black hole,
 accretion-disk shading with Doppler and gravitational red/blue shift, mesh
 compositing through a "relativity sphere" with BVH acceleration, a
 coarse-to-fine adaptive ray ladder, a star-map background, and a
 bloom -> mix -> ACES -> FXAA post chain — all end-to-end differentiable and
-shardable across TPU meshes.
+shardable across device meshes.
 
 Architecture (not a port — see SURVEY.md §7):
   bhx.physics    geodesic RHS + conserved quantities        (ray.wgsl:401-403)
@@ -17,7 +17,7 @@ Architecture (not a port — see SURVEY.md §7):
   bhx.shading    disk / redshift / sky shading              (ray.wgsl:598-666)
   bhx.tracer     phase-decomposed ray tracer                (ray.wgsl:482-596)
   bhx.pipeline   ladder + post chain, jitted render()       (renderer/mod.rs)
-  bhx.kernels    Pallas TPU kernels for the hot march loop
+  bhx.kernels    Pallas kernels (Triton route): march, shade, sky
   bhx.parallel   Mesh/shard_map tile sharding, train step
   bhx.assets     procedural disk/sky/blackbody assets       (perlin/src/main.rs)
 """
@@ -25,36 +25,42 @@ Architecture (not a port — see SURVEY.md §7):
 import os as _os
 
 
-def enable_compile_cache(path: str | None = None) -> None:
+def enable_compile_cache(path: str | None = None) -> str | None:
     """Turn on JAX's persistent on-disk compilation cache.
 
-    Full-pipeline graphs cost 35-90 s EACH to compile; the cache makes
-    every repeated CLI/bench/script invocation start warm.  This is an
-    explicit opt-in called by bhx's own entry points (CLI, bench, viewer,
-    scripts) — importing the library never mutates process state
-    (ADVICE r4).  Honors an externally set JAX_COMPILATION_CACHE_DIR;
-    pass ``path`` to override.  Idempotent.
+    Full-pipeline graphs take tens of seconds each to compile; the cache
+    makes repeated CLI/bench/script runs start warm.  An explicit opt-in
+    called by bhx's own entry points (CLI, bench, viewer, chip_smoke.py,
+    scripts) — importing the library never mutates process state.
+
+    The directory is ``path`` if given, else ``JAX_COMPILATION_CACHE_DIR``
+    if set (an empty value opts out), else ``.jax_cache`` at the root of
+    this checkout.  The path is part of the cache key, so it is fixed.
+    Returns the directory in use (None when opted out).  Idempotent.
     """
     if path is not None:
         cache = path
     else:
-        cache = _os.environ.get("JAX_COMPILATION_CACHE_DIR")
-        if cache is None:
-            cache = _os.path.join(_os.path.expanduser("~"), ".cache", "jaxcomp")
-    if not cache:  # opted out via JAX_COMPILATION_CACHE_DIR=""
-        return
+        cache = _os.environ.get("JAX_COMPILATION_CACHE_DIR", DEFAULT_CACHE_DIR)
+    if not cache:
+        return None
     _os.environ["JAX_COMPILATION_CACHE_DIR"] = cache
-    try:  # if jax was imported first, the env default was already captured
-        import jax as _jax
+    import jax as _jax
 
-        if not _jax.config.jax_compilation_cache_dir:
-            _jax.config.update("jax_compilation_cache_dir", cache)
-    except Exception:  # pragma: no cover - cache is best-effort
-        pass
+    # If jax was imported first, the env default was already captured.
+    if _jax.config.jax_compilation_cache_dir != cache:
+        _jax.config.update("jax_compilation_cache_dir", cache)
+    return cache
+
+
+DEFAULT_CACHE_DIR = _os.path.join(
+    _os.path.dirname(_os.path.dirname(_os.path.abspath(__file__))),
+    ".jax_cache",
+)
 
 from bhx.config import RenderConfig, FxaaConfig, LadderConfig, BloomConfig
 from bhx.scene import Camera, BlackHole, Scene, Mesh
-from bhx.pipeline import render, render_image
+from bhx.pipeline import render, render_image, render_jit
 from bhx.tracer import trace_rays
 
 __version__ = "0.1.0"
@@ -71,5 +77,6 @@ __all__ = [
     "Mesh",
     "render",
     "render_image",
+    "render_jit",
     "trace_rays",
 ]

@@ -20,13 +20,10 @@ def _build_config(args) -> "RenderConfig":
         Integrator,
         LadderConfig,
         RenderConfig,
+        resolve_march_mode,
     )
 
-    mode = args.march_mode
-    if mode == "auto":
-        import jax
-
-        mode = "pallas" if jax.default_backend() == "tpu" else "fast"
+    mode = resolve_march_mode(args.march_mode)
     ladder = LadderConfig.for_resolution(args.width, args.height, args.ladder_levels)
     return RenderConfig(
         width=args.width,
@@ -119,7 +116,7 @@ def _add_scene_flags(p: argparse.ArgumentParser):
         "--march-mode",
         choices=["auto", "fast", "diff", "pallas"],
         default="auto",
-        help="auto = Pallas kernel on TPU, jnp while_loop elsewhere",
+        help="auto = Pallas kernels on a GPU, XLA while_loop elsewhere",
     )
     p.add_argument("--mix-ratio", type=float, default=0.7)
     for flag in (
@@ -209,9 +206,9 @@ def cmd_fit(args) -> int:
 def main(argv=None) -> int:
     import bhx
 
-    bhx.enable_compile_cache()  # CLI entry point opts in (ADVICE r4)
+    bhx.enable_compile_cache()  # CLI entry point opts in
     parser = argparse.ArgumentParser(
-        prog="bhx", description="TPU-native differentiable black-hole renderer"
+        prog="bhx", description="differentiable black-hole renderer"
     )
     sub = parser.add_subparsers(dest="cmd", required=True)
 

@@ -142,9 +142,9 @@ class RenderConfig:
     height: int = 1081
 
     # --- geodesic march (reference RayDetails, ray_pipeline.rs:5-14) ---
-    # "pseudo": the reference's pseudo-Newtonian bending force (fast,
-    # Pallas-accelerated).  "kerr": exact Kerr null geodesics via the
-    # autodiff Hamiltonian in bhx.kerr (spin-capable; jnp path only).
+    # "pseudo": the reference's pseudo-Newtonian bending force.  "kerr":
+    # exact Kerr null geodesics via the autodiff Hamiltonian (bhx.kerr,
+    # mirrored in the march kernel); spin-capable.
     geodesics: str = "pseudo"
     # The reference ships with Euler (RayDetails::default() zero-inits
     # integration_method to 0 = Euler, ray_pipeline.rs:4-14, mod.rs:116-121);
@@ -173,9 +173,9 @@ class RenderConfig:
     show_sky: bool = True
     render_meshes: bool = True
     # "procedural": evaluate disk texture / sky / blackbody tint
-    # arithmetically per sample (bhx.procedural) — gather-free, the TPU
-    # default.  "array": bilinear-sample the scene's texture arrays
-    # (user-supplied content; required for gradients w.r.t. the textures).
+    # arithmetically per sample (bhx.procedural) — the default.  "array":
+    # bilinear-sample the scene's texture arrays (user-supplied content;
+    # required for gradients w.r.t. the textures).
     texture_mode: str = "procedural"
 
     # Early-exit opacity threshold (reference ray.wgsl:578).
@@ -194,42 +194,23 @@ class RenderConfig:
     # --- numerics ---
     # "diff" = fixed-length checkpointed scan (reverse-differentiable);
     # "fast" = early-exiting while_loop (forward only);
-    # "pallas" = Pallas TPU kernel (forward; custom VJP recomputes via scan).
+    # "pallas" = Pallas kernels, Triton route (forward; the custom VJP
+    # replays a jnp mirror); "pallas_interpret" runs them in interpret
+    # mode (a test switch for machines without a GPU).
     march_mode: str = "fast"
     # Checkpoint every this many march steps in diff mode.
     checkpoint_every: int = 50
-    # Pallas mode: march this many steps per kernel round, then compact
-    # still-active rays before the next round.  Default = one round: camera
-    # rays are spatially coherent, so per-tile early exit already tracks
-    # the local march depth and extra rounds just pay fixed permute/launch
-    # costs (measured on v5e: 1 round 2.75s vs 8 rounds 3.10s at dense
-    # 1080p).  Lower it only for scenes with severe per-tile divergence.
+    # Pallas mode: march this many steps per kernel round, then merge the
+    # recorded slots before the next round.  Default = one round: camera
+    # rays are spatially coherent, so per-block early exit already tracks
+    # the local march depth.  Lower it only for scenes with severe
+    # per-block divergence.
     pallas_round_steps: int = 4096
     # Steps between the kernel's all-lanes-done votes (budget-capped rays
     # may overrun by up to this many steps; see march_pallas.VOTE_EVERY).
     pallas_vote_every: int = 32
-    # Kernel tile shape: (pallas_sublanes, 128) lanes per field.  Bigger
-    # tiles give Mosaic more independent chains to pipeline; early exit
-    # coarsens to tile granularity (compaction rounds absorb that).
-    # Swept on TPU v5e (scripts/kernel_sweep.py): 64 sublanes hit
-    # 8.45 G lane-steps/s vs 3.6 G at 8; 128 regresses, 256 OOMs VMEM.
-    pallas_sublanes: int = 64
-    # Shrink the tile for small batches (coarse ladder levels) so dead
-    # pad lanes don't widen every vector op (tracer._march_sublanes).
-    # Default OFF: measured on v5e it is throughput-neutral at best
-    # (scripts/out/SUBLANES_AB.json — adaptive 51.1/52.0 vs fixed
-    # 51.3/53.8 Mrays/s interleaved), i.e. Mosaic does not charge for
-    # dead sublane width the way the op-count model predicts.
-    pallas_adaptive_sublanes: bool = False
     # Integration substeps unrolled per kernel inner-loop iteration.
-    pallas_unroll: int = 8
-    # Tile rows for the shade/sky finalize kernels.  Smaller tiles skip
-    # crossing-free regions at finer granularity, but grid-step overhead
-    # dominates at 1080p: the full-trace sweep measured 31.6 / 30.5 /
-    # 29.8 / 29.4 ms at 8 / 16 / 32 / 64 (scripts/out/SHADE_SWEEP.json),
-    # so big tiles win; small batches shrink automatically
-    # (tracer._shade_sublanes).
-    pallas_shade_sublanes: int = 64
+    pallas_unroll: int = 1
     # Ray chunks for the march kernel's backward replay (sequential via
     # lax.map): raise above 1 when reverse-mode at large resolutions
     # exceeds HBM (peak backward memory divides by this).
@@ -253,3 +234,16 @@ class RenderConfig:
 
 
 DEFAULT_CONFIG = RenderConfig()
+
+
+def resolve_march_mode(mode: str, platform: str | None = None) -> str:
+    """Resolve ``"auto"``: the Pallas kernel path on a GPU, the plain XLA
+    while_loop march anywhere else.  ``platform`` defaults to that of
+    ``jax.devices()[0]``; other modes pass through."""
+    if mode != "auto":
+        return mode
+    if platform is None:
+        import jax
+
+        platform = jax.devices()[0].platform
+    return "pallas" if platform == "gpu" else "fast"

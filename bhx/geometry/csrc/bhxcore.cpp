@@ -1,4 +1,4 @@
-// bhxcore — native geometry preprocessing for the bhx TPU renderer.
+// bhxcore — native geometry preprocessing for the bhx renderer.
 //
 // Implements the same BVH construction the reference performs in Rust
 // (reference: src/renderer/triangle.rs:143-259): binary tree, midpoint split

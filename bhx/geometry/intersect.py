@@ -3,7 +3,7 @@
 Replaces the reference's per-ray WGSL hit functions
 (hit_sphere ray.wgsl:725-766, hit_torus2d :668-701, hit_aabb :703-723,
 hit_triangle :768-847) with batched jnp versions: misses are encoded as
-``t = MISS_T`` instead of branches, so everything maps onto the VPU with no
+``t = MISS_T`` instead of branches, so everything is elementwise with no
 divergence.  All functions broadcast over arbitrary leading ray dims.
 """
 

@@ -2,7 +2,7 @@
 
 The reference walks the BVH per ray with a 19-deep local stack inside the
 march loop (trace_ray_model, ray.wgsl:287-363).  Two structural changes make
-this TPU-native:
+it a batched array program:
 
 1. Mesh tests are *hoisted out of the march loop* entirely: the reference
    only ever intersects triangles along straight ray segments (outside the
@@ -16,8 +16,8 @@ this TPU-native:
    XLA gathers.
 
 For small meshes a gather-free brute-force path (scan over triangle chunks,
-pure VPU broadcasting) is usually faster on TPU and is selected
-automatically below ``brute_force_threshold`` triangles.
+pure broadcasting) is selected automatically below
+``brute_force_threshold`` triangles.
 
 Mesh visibility gradients are inherently discontinuous, so results are
 wrapped in stop_gradient by the tracer (SURVEY.md §7 hard part 2).
@@ -97,7 +97,7 @@ def _gather_tri(mesh: Mesh, tri_idx):
 
 def _intersect_brute(origin, direction, mesh: Mesh, t_lim):
     """Scan over triangle chunks: rays (N,1,3) x tris (1,C,3), no gathers
-    in the inner test — pure VPU broadcasting."""
+    in the inner test — pure broadcasting."""
     ntris = mesh.num_triangles
     n = origin.shape[0]
     if ntris == 0:

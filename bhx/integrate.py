@@ -4,7 +4,7 @@ Replaces the reference's per-pixel integrator (ray.wgsl:405-480) with
 fully vectorized per-lane steppers.  The march loop itself lives in
 :mod:`bhx.tracer` (jnp) and :mod:`bhx.kernels.march_pallas` (Pallas); both
 call these step functions, which are pure elementwise math over batches of
-rays — exactly the shape the TPU VPU wants.
+rays.
 
 Design notes vs the reference (SURVEY.md §2 row 15, §7 hard part 1):
 

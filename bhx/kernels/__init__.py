@@ -1,4 +1,4 @@
-"""Pallas TPU kernels for the hot geodesic march loop."""
+"""Pallas kernels (Triton route) for the geodesic march and shading."""
 
 from bhx.kernels.march_pallas import march_pallas, MarchKernelConfig
 

@@ -263,11 +263,11 @@ def _march_bwd(kcfg, res, g):
     C = kcfg.bwd_chunks
     n = rays[0].shape[0]
     if C > 1 and n % C != 0:
-        # Keep the HBM bound when the requested chunk count doesn't divide
-        # the ray count (e.g. a resolution change): fall back to the
+        # Keep the memory bound when the requested chunk count doesn't
+        # divide the ray count (e.g. a resolution change): fall back to the
         # largest divisor of n that is <= C rather than silently replaying
-        # single-shot (ADVICE r4).  n is lane-padded (multiples of 1024),
-        # so a nearby divisor always exists.
+        # single-shot.  n is a multiple of the kernel block, so a nearby
+        # divisor always exists.
         C = next(c for c in range(C, 0, -1) if n % c == 0)
     if C <= 1:
         _, vjp = jax.vjp(lambda r, p: march_jnp(r, p, kcfg), rays, params)

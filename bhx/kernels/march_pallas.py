@@ -1,42 +1,37 @@
-"""Pallas TPU kernel for the geodesic march (the hot loop).
+"""Pallas kernel for the geodesic march (the hot loop), Triton route.
 
 Replaces the jnp march of bhx.tracer._march_phase for the forward path.
 The reference's per-pixel megakernel interleaves integration, hit tests,
-texture sampling and compositing in one divergent loop (ray.wgsl:518-581);
-that shape is poison for a vector machine, so the kernel here is designed
-around what the VPU does well:
+texture sampling and compositing in one divergent loop (ray.wgsl:518-581).
+The kernel keeps that shape — one program per small block of rays, the
+whole march in registers, early exit per block — and moves the texture
+work out of the loop:
 
-* **SoA lane layout.** A grid step processes a tile of 1024 rays as
-  (8, 128) registers per field — pure elementwise math, no gathers, no
-  per-lane control flow.
-* **Record, don't shade.** Texture lookups are gathers, so the kernel
-  never touches textures: it *records* the geometry of up to K disk
-  crossings per ray (position + direction per crossing) straight into the
-  output ref, under a `pl.when(any(crossing))` guard so crossing-free
-  steps (the vast majority) skip the bookkeeping entirely.  Shading
-  (disk texture, Doppler/gravitational tint) and alpha compositing run
-  afterwards as dense vectorized jnp over the recorded slots — exactly
+* **Structure of arrays.** A program owns a 1-D block of ``BLOCK`` rays;
+  every ray field is its own (N,) row, loaded once into registers, carried
+  through the march, and stored once.  The plain XLA march
+  (``march_mode="fast"``) instead sends the whole frame's state through
+  device memory on every step.
+* **Record, don't shade.** The kernel never touches textures: it
+  *records* the geometry of up to K disk crossings per ray (position +
+  direction per crossing) with masked stores into the output rows, under a
+  guard so crossing-free steps (the vast majority) skip the bookkeeping.
+  Shading and compositing run afterwards over the recorded slots — exactly
   equivalent because shading depends only on crossing geometry.
 * **Masked lane adaptivity.** RK45 step rejection/acceptance is a lane
   mask (rejected lanes retry with the shrunken h on the next loop pass);
-  termination is a lane mask + an all-lanes-done vote in the while_loop
-  condition, so a tile exits as soon as *its* rays are done — the TPU
-  analogue of SIMT early exit at 1024-ray granularity (SURVEY.md §7
-  hard part 1).
+  termination is a lane mask + an all-lanes-done vote (``jnp.max`` over
+  the block) in the while_loop condition, so a block exits as soon as
+  *its* rays are done.
 * **Transcendental-free steps.** r^-5 is rsqrt^5 (no pow), radial window
   tests compare squared distances, and the early-exit opacity bound uses
   the pow-free minorant x^1.3 >= min(x, x^2) instead of (30*dens)^1.3
-  (ray.wgsl:623), so a step is pure mul/add/select + two rsqrt.
-* **Unrolled loop.** UNROLL integration steps per while iteration
-  amortize the scalar-unit cond/branch overhead of the loop.
+  (ray.wgsl:623).
+* **Unrolled loop.** ``unroll`` integration steps per inner iteration and
+  a vote every ``vote_every`` steps amortize the loop and vote overhead.
 
 The kernel runs in float32 (geodesics near the horizon need the mantissa;
-r^-5 in bf16 is hopeless).  Layouts are FIELD-MAJOR end-to-end: rays
-(F_in, N) in / (F_out, N) out, viewed as (F, tiles, s8, 128) with the grid
-walking the tile axis through the BlockSpec index map — no relayout on
-either side (an (N, F) layout costs lane-granularity transposes,
-~20 ms/frame at 1080p; scripts/bisect_shade.py).  Scalar parameters ride
-in SMEM.
+r^-5 in bf16 is hopeless).
 """
 
 from __future__ import annotations
@@ -47,16 +42,18 @@ import functools
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as pltri
 
 from bhx.kernels.march_substep import march_substep
 
-LANES = 8 * 128  # rays per grid step
+# Rays per program, and warps per program (one ray per thread).
+BLOCK = 128
+NUM_WARPS = 4
 
 # Input ray fields.  Kerr marches carry 3 extra momentum fields (10-12).
 IN_FIELDS = 10  # px, py, pz, dx, dy, dz, h, active, amount, steps_done
 
-# Scalar parameter vector layout (SMEM).
+# Scalar parameter vector layout.
 _P = dict(
     bh_x=0, bh_y=1, bh_z=2, mass=3, horizon_r=4, rel_r=5,
     disk_nx=6, disk_ny=7, disk_nz=8, disk_inner=9, disk_outer=10,
@@ -70,6 +67,8 @@ _P = dict(
     spin=20,
 )
 NUM_PARAMS = len(_P)
+# The parameter block is padded to a power of two (Triton block shapes).
+PARAMS_PAD = 32
 
 # Output field layout.  ``count`` is the TRUE number of disk crossings the
 # ray made (not capped at max_crossings) — callers use it to measure how
@@ -81,13 +80,13 @@ _OUT_FIXED = dict(
 OUT_FIXED = len(_OUT_FIXED)
 CROSS_FIELDS = 7  # hx, hy, hz, dx, dy, dz, valid
 
-# Substeps fully unrolled per inner-loop iteration.
-UNROLL = 4
-# Steps between all-lanes-done votes: the while cond's vector reduce +
-# scalar branch costs ~µs of pipeline stall, so vote rarely.  The final
-# round may overrun a budget-capped ray by < VOTE_EVERY steps (such rays
-# are photon-sphere orbiters that output their current direction; the
-# overrun only changes that direction marginally).
+# Substeps fully unrolled per inner-loop iteration.  Triton's compile
+# time grows steeply with the unrolled body (PERF.md), so 1.
+UNROLL = 1
+# Steps between all-lanes-done votes.  The final round may overrun a
+# budget-capped ray by < VOTE_EVERY steps (such rays are photon-sphere
+# orbiters that output their current direction; the overrun only changes
+# that direction marginally).
 VOTE_EVERY = 32
 
 
@@ -97,7 +96,7 @@ class MarchKernelConfig:
     # "pseudo": the reference's pseudo-Newtonian bending force
     # (ray.wgsl:401-403).  "kerr": exact Kerr null geodesics — Hamiltonian
     # RK4 in Kerr-Schild coordinates with dH/dx from jax.vjp *inside* the
-    # kernel body (pure elementwise math -> VPU code); mirrors bhx.kerr.
+    # kernel body (pure elementwise math); mirrors bhx.kerr.
     geodesics: str = "pseudo"
     max_iterations: int = 2000
     max_crossings: int = 4
@@ -105,11 +104,6 @@ class MarchKernelConfig:
     tex_opacity_min: float = 0.7
     show_disk: bool = True
     vote_every: int = VOTE_EVERY
-    # Sublane rows per tile: a tile is (sublanes, 128) lanes per field, so
-    # each vector op covers sublanes/8 VPU registers — bigger tiles give
-    # Mosaic independent chains to pipeline, at coarser early-exit
-    # granularity (compaction rounds absorb that).
-    sublanes: int = 8
     # Integration substeps unrolled per inner-loop iteration.
     unroll: int = UNROLL
     # Backward-pass ray chunking (march_grad custom_vjp): the adjoint
@@ -117,16 +111,11 @@ class MarchKernelConfig:
     # O(rays * state / bwd_chunks) because chunks run sequentially via
     # lax.map.  1 = single-shot (fastest when it fits).
     bwd_chunks: int = 1
-    # Guard slot recording with pl.when(any(crossing)) — skips the 28
-    # where+stores on crossing-free substeps at the cost of a cross-lane
-    # reduce + scalar branch EVERY substep.  False records
-    # unconditionally (pure vector selects, no per-substep vote).
+    # Guard slot recording behind a per-substep any(crossing) vote — skips
+    # the masked stores on crossing-free substeps at the cost of a block
+    # reduce every substep.  False records unconditionally.
     record_guard: bool = True
     interpret: bool = False
-
-    @property
-    def lanes(self) -> int:
-        return self.sublanes * 128
 
     @property
     def in_fields(self) -> int:
@@ -143,59 +132,43 @@ class MarchKernelConfig:
         )
 
 
-class _Rows:
-    """Field-indexing adapter over a tuple of per-field block refs:
-    ``rows[f, 0]`` reads / ``rows[f, 0] = v`` writes field f's (s8, 128)
-    block, so the kernel body reads like the single-array layout."""
-
-    def __init__(self, refs):
-        self._refs = refs
-
-    def __getitem__(self, idx):
-        f = idx[0] if isinstance(idx, tuple) else idx
-        return self._refs[f][0]
-
-    def __setitem__(self, idx, value):
-        f = idx[0] if isinstance(idx, tuple) else idx
-        self._refs[f][0] = value
+def _any(mask):
+    """Block-wide any() as a max-reduce: the Triton route has no
+    ``reduce_or`` lowering."""
+    return jnp.max(jnp.where(mask, 1.0, 0.0)) > 0.5
 
 
 def _kernel(params_ref, *refs, kcfg: MarchKernelConfig):
-    # refs = in_fields input refs followed by out_fields output refs; each
-    # is a (1, s8, 128) block of its own contiguous (tiles, s8, 128) field
-    # array (tuple-of-rows I/O — see march_pallas).
-    rays_ref = _Rows(refs[:kcfg.in_fields])
-    out_ref = _Rows(refs[kcfg.in_fields:])
-    p = lambda name: params_ref[0, _P[name]]
+    # refs = in_fields input row refs followed by out_fields output row
+    # refs; each is this program's (BLOCK,) slice of its own (N,) field.
+    ins = refs[:kcfg.in_fields]
+    outs = refs[kcfg.in_fields:]
+    p = lambda name: params_ref[_P[name]]
 
     bx, by, bz = p("bh_x"), p("bh_y"), p("bh_z")
 
-    px0 = rays_ref[0, 0]
-    py0 = rays_ref[1, 0]
-    pz0 = rays_ref[2, 0]
-    dx0 = rays_ref[3, 0]
-    dy0 = rays_ref[4, 0]
-    dz0 = rays_ref[5, 0]
-    h0 = rays_ref[6, 0]
-    act0 = rays_ref[7, 0]
-    amount0 = rays_ref[8, 0]
-    steps0 = rays_ref[9, 0]
+    px0, py0, pz0 = ins[0][...], ins[1][...], ins[2][...]
+    dx0, dy0, dz0 = ins[3][...], ins[4][...], ins[5][...]
+    h0 = ins[6][...]
+    act0 = ins[7][...]
+    amount0 = ins[8][...]
+    steps0 = ins[9][...]
     budget = p("budget")
 
     zeros = jnp.zeros_like(px0)
     K = kcfg.max_crossings
     kerr = kcfg.geodesics == "kerr"
 
-    # Crossing slots live in the output ref, not the loop carry.
+    # Crossing slots live in the output rows, not the loop carry.
     for k in range(K):
         base = OUT_FIXED + k * CROSS_FIELDS
         for f in range(CROSS_FIELDS):
-            out_ref[base + f, 0] = zeros
+            outs[base + f][...] = zeros
 
     init = dict(
         px=px0, py=py0, pz=pz0, dx=dx0, dy=dy0, dz=dz0,
         h=h0,
-        act=jnp.where(steps0 < budget, act0, 0.0),  # float 0/1: Mosaic cannot carry i1 vectors
+        act=jnp.where(steps0 < budget, act0, 0.0),
         steps=zeros,
         closest2=(px0 - bx) ** 2 + (py0 - by) ** 2 + (pz0 - bz) ** 2,
         # Continue the running transmission bound across march rounds.
@@ -206,45 +179,38 @@ def _kernel(params_ref, *refs, kcfg: MarchKernelConfig):
         it=jnp.int32(0),
     )
     if kerr:
-        init.update(
-            qx=rays_ref[10, 0], qy=rays_ref[11, 0], qz=rays_ref[12, 0]
-        )
+        init.update(qx=ins[10][...], qy=ins[11][...], qz=ins[12][...])
 
     def cond(s):
         return jnp.logical_and(
-            s["it"] < kcfg.max_iterations, jnp.any(s["act"] > 0.5)
+            s["it"] < kcfg.max_iterations, _any(s["act"] > 0.5)
         )
 
     def record(crossing, count, hit_vals):
-        """Scatter a crossing into the K-slot output block.  Guarded mode
-        skips the bookkeeping on crossing-free steps (the vast majority)
-        behind a pl.when; unguarded mode records unconditionally with
-        pure vector selects (no per-substep cross-lane vote)."""
+        """Store a crossing into its K-slot output rows with masked stores
+        (only the lanes that cross write; no read-modify-write)."""
 
         def _record():
             for k in range(K):
                 base = OUT_FIXED + k * CROSS_FIELDS
                 put = jnp.logical_and(crossing, count == float(k))
                 for f in range(6):
-                    out_ref[base + f, 0] = jnp.where(
-                        put, hit_vals[f], out_ref[base + f, 0]
-                    )
-                out_ref[base + 6, 0] = jnp.where(put, 1.0, out_ref[base + 6, 0])
+                    pltri.store(outs[base + f], hit_vals[f], mask=put)
+                pltri.store(outs[base + 6], jnp.ones_like(count), mask=put)
 
         if kcfg.record_guard:
-            pl.when(jnp.any(crossing))(_record)
+            pl.when(_any(crossing))(_record)
         else:
             _record()
 
     def substep(s):
         # THE substep — the same shared definition the custom_vjp replay
-        # scans (bhx.kernels.march_substep): pure elementwise jnp, so it
-        # lowers to VPU code here; sg=identity (no autodiff through the
-        # kernel itself), slot storage via the pl.when record above.
+        # scans (bhx.kernels.march_substep); sg=identity (no autodiff
+        # through the kernel itself), slot storage via record above.
         ss = {k: v for k, v in s.items() if k != "it"}
         ss["steps0"] = steps0
         new = march_substep(ss, p, kcfg, record=record)
-        del new["steps0"]  # tile-constant; lives in the input ref
+        del new["steps0"]  # block-constant; lives in the input row
         new["it"] = s["it"] + 1
         return new
 
@@ -262,26 +228,26 @@ def _kernel(params_ref, *refs, kcfg: MarchKernelConfig):
 
     final = jax.lax.while_loop(cond, body, init)
 
-    out_ref[_OUT_FIXED["px"], 0] = final["px"]
-    out_ref[_OUT_FIXED["py"], 0] = final["py"]
-    out_ref[_OUT_FIXED["pz"], 0] = final["pz"]
-    out_ref[_OUT_FIXED["dx"], 0] = final["dx"]
-    out_ref[_OUT_FIXED["dy"], 0] = final["dy"]
-    out_ref[_OUT_FIXED["dz"], 0] = final["dz"]
-    out_ref[_OUT_FIXED["steps"], 0] = final["steps"]
-    out_ref[_OUT_FIXED["closest"], 0] = jnp.sqrt(final["closest2"])
-    out_ref[_OUT_FIXED["horizon"], 0] = final["horizon"]
-    out_ref[_OUT_FIXED["exited"], 0] = final["exited"]
-    out_ref[_OUT_FIXED["h"], 0] = final["h"]
-    out_ref[_OUT_FIXED["amount"], 0] = final["amount_ub"]
-    out_ref[_OUT_FIXED["count"], 0] = final["count"]
+    outs[_OUT_FIXED["px"]][...] = final["px"]
+    outs[_OUT_FIXED["py"]][...] = final["py"]
+    outs[_OUT_FIXED["pz"]][...] = final["pz"]
+    outs[_OUT_FIXED["dx"]][...] = final["dx"]
+    outs[_OUT_FIXED["dy"]][...] = final["dy"]
+    outs[_OUT_FIXED["dz"]][...] = final["dz"]
+    outs[_OUT_FIXED["steps"]][...] = final["steps"]
+    outs[_OUT_FIXED["closest"]][...] = jnp.sqrt(final["closest2"])
+    outs[_OUT_FIXED["horizon"]][...] = final["horizon"]
+    outs[_OUT_FIXED["exited"]][...] = final["exited"]
+    outs[_OUT_FIXED["h"]][...] = final["h"]
+    outs[_OUT_FIXED["amount"]][...] = final["amount_ub"]
+    outs[_OUT_FIXED["count"]][...] = final["count"]
     if kerr:
         # Final conjugate momentum after the slot block — multi-round
         # marching resumes the Hamiltonian state from it.
         base = OUT_FIXED + CROSS_FIELDS * K
-        out_ref[base + 0, 0] = final["qx"]
-        out_ref[base + 1, 0] = final["qy"]
-        out_ref[base + 2, 0] = final["qz"]
+        outs[base + 0][...] = final["qx"]
+        outs[base + 1][...] = final["qy"]
+        outs[base + 2][...] = final["qz"]
 
 
 @functools.partial(jax.jit, static_argnames=("kcfg",))
@@ -290,51 +256,39 @@ def march_pallas(rays, params, kcfg: MarchKernelConfig):
 
     rays: TUPLE of kcfg.in_fields float32 (N,) row arrays — px, py, pz,
     dx, dy, dz, h0, active, amount, steps_done [, qx, qy, qz for
-    geodesics="kerr"] — N a multiple of kcfg.lanes.  params: (NUM_PARAMS,)
+    geodesics="kerr"] — N a multiple of BLOCK.  params: (NUM_PARAMS,)
     float32 per _P.  Returns a tuple of kcfg.out_fields (N,) row arrays
     (OUT_FIXED fixed fields + 7K slot fields [, final momentum for kerr]).
 
-    Tuple-of-rows I/O is load-bearing for throughput: every field is its
-    own contiguous (tiles, s8, 128) array (a free reshape of the (N,)
-    row), each per-tile DMA is one contiguous chunk, and callers never
-    stack or slice a combined array.  A single (N, fields) array forced
-    lane-granularity transposes (~20 ms/frame at 1080p,
-    scripts/bisect_shade.py); a single (fields, N) array made each tile's
-    DMA fields strided chunks (+20%% kernel time, scripts/bisect_l3.py).
+    Tuple-of-rows I/O: every field is its own contiguous row, so each
+    program's loads and stores are coalesced and callers never stack or
+    slice a combined array.
     """
     fin = kcfg.in_fields
     fout = kcfg.out_fields
     assert len(rays) == fin, f"{len(rays)} ray fields, kcfg expects {fin}"
     n = rays[0].shape[0]
-    lanes = kcfg.lanes
-    s8 = kcfg.sublanes
-    assert n % lanes == 0, f"ray count {n} not a multiple of {lanes}"
-    tiles = n // lanes
+    assert n % BLOCK == 0, f"ray count {n} not a multiple of {BLOCK}"
 
-    rays_r = [r.reshape(tiles, s8, 128) for r in rays]
-    params2 = params.reshape(1, NUM_PARAMS)
-    row_spec = pl.BlockSpec((1, s8, 128), lambda i: (i, 0, 0),
-                            memory_space=pltpu.VMEM)
+    params_p = jnp.zeros((PARAMS_PAD,), jnp.float32).at[:NUM_PARAMS].set(params)
+    row_spec = pl.BlockSpec((BLOCK,), lambda i: (i,))
 
-    out = pl.pallas_call(
+    return tuple(pl.pallas_call(
         functools.partial(_kernel, kcfg=kcfg),
-        grid=(tiles,),
-        in_specs=[
-            pl.BlockSpec((1, NUM_PARAMS), lambda i: (0, 0),
-                         memory_space=pltpu.SMEM),
-        ] + [row_spec] * fin,
+        grid=(n // BLOCK,),
+        in_specs=[pl.BlockSpec((PARAMS_PAD,), lambda i: (0,))]
+        + [row_spec] * fin,
         out_specs=[row_spec] * fout,
-        out_shape=[
-            jax.ShapeDtypeStruct((tiles, s8, 128), jnp.float32)
-        ] * fout,
+        out_shape=[jax.ShapeDtypeStruct((n,), jnp.float32)] * fout,
+        compiler_params=pltri.CompilerParams(num_warps=NUM_WARPS,
+                                             num_stages=1),
         interpret=kcfg.interpret,
-    )(params2, *rays_r)
-
-    return tuple(o.reshape(n) for o in out)
+        name=f"bhx_march_{kcfg.geodesics}_{kcfg.integrator}",
+    )(params_p, *rays))
 
 
 def pack_params(black_hole, disk_normal, cfg) -> jnp.ndarray:
-    """Build the SMEM parameter vector from scene + config."""
+    """Build the scalar parameter vector from scene + config."""
     vals = [
         black_hole.position[0], black_hole.position[1], black_hole.position[2],
         black_hole.mass, black_hole.horizon_radius, black_hole.relativity_radius,

@@ -10,7 +10,7 @@ termination/budget masks.  Both call sites inline it:
 * ``march_pallas._kernel`` calls it with ``sg=identity`` and a
   ``record`` callback that scatters crossing slots into the output ref
   under a ``pl.when`` guard (everything in here is elementwise jnp, so
-  it lowers to VPU code unchanged);
+  it lowers into the kernel unchanged);
 * ``march_grad.step_pure`` calls it with ``sg=jax.lax.stop_gradient``
   (mask heuristics must not enter the autodiff graph) and a ``record``
   callback that folds slots into the scan carry.
@@ -39,7 +39,7 @@ from bhx.integrate import (
 
 def kerr_scalars(rx, ry, rz, mass, a_k):
     """(r, f, l): Kerr-Schild radial coordinate, potential, null vector
-    (component-wise mirror of bhx.kerr._kerr_scalars for the VPU)."""
+    (component-wise mirror of bhx.kerr._kerr_scalars)."""
     a2_k = a_k * a_k
     rho2 = rx * rx + ry * ry + rz * rz
     b_ = rho2 - a2_k
@@ -56,8 +56,8 @@ def kerr_scalars(rx, ry, rz, mass, a_k):
 
 def kerr_rhs(rx, ry, rz, qx, qy, qz, mass, a_k):
     """Hamilton's equations: dx = p - f lp l; dp = -dH/dx with dH/dx from
-    ``jax.vjp`` (pure elementwise math, so it lowers to VPU code inside
-    the kernel and is twice-differentiable in the replay; bhx.kerr.rhs)."""
+    ``jax.vjp`` (pure elementwise math, so it lowers inside the kernel
+    and is twice-differentiable in the replay; bhx.kerr.rhs)."""
     _, f, lx, ly, lz = kerr_scalars(rx, ry, rz, mass, a_k)
     lp = 1.0 + lx * qx + ly * qy + lz * qz
     flp = f * lp
@@ -79,7 +79,7 @@ def march_substep(s, p, kcfg, *, sg=lambda x: x, record=None):
     """One integration substep; returns the advanced state dict.
 
     ``s``: per-ray state arrays (module docstring).  ``p``: name ->
-    scalar parameter (SMEM read in the kernel, dict lookup in the
+    scalar parameter (a scalar load in the kernel, dict lookup in the
     mirror).  ``sg``: stop_gradient hook applied to the early-exit
     transmission-bound heuristic (identity in the kernel).  ``record``:
     ``record(crossing, count_before, hit_vals)`` stores a disk-crossing

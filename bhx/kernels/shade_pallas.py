@@ -1,32 +1,18 @@
-"""Pallas TPU kernels for deferred disk shading and the procedural sky.
+"""Pallas kernel (Triton route) for deferred disk shading.
 
-Round-1 profiling showed the frame was dominated not by the geodesic march
-but by the *shading* glue around it: XLA ran the jnp procedural-texture math
-(4-octave Perlin disk texel, star-grid sky, blackbody tint polynomial) at
-~100x off roofline — 239 ms for the sky alone at 1080p — because every one
-of the ~100 intermediates is a full-frame HBM array.  These kernels keep the
-whole evaluation in VMEM registers per (sublanes, 128) tile and add
-tile-granular work skipping:
+**shade_composite** — the march kernel's recorded disk-crossing slots
+(march_pallas.py, record-don't-shade) -> (r, g, b, transmission) rows: per
+slot the optical depth, procedural texel, blackbody tint and ``disk_gain``
+sample, then the front-to-back composite, in one pass with the running
+composite in registers.  A block whose rays have no valid slot-k crossing
+skips slot k's shading.  On the 1080p default frame it beats the jnp
+version XLA compiles (PERF.md).
 
-* **shade_ingredients** — per recorded disk-crossing slot (the march
-  kernel's record-don't-shade output, march_pallas.py), computes the
-  geometry-derived shading ingredients: optical depth, procedural texel m,
-  blackbody tint rgb, and the texture uv.  Disk pixels cluster spatially,
-  so a tile whose slot-k records are all invalid skips the entire texel +
-  tint evaluation via pl.when (most tiles, for most k).  The final
-  composite (disk_gain grid, opacity, cumprod transparency) stays in jnp —
-  it is ~50 flops/slot and differentiable w.r.t. ``Scene.disk_gain``
-  for free.
-* **sky_finalize** — record -> final rgb: equirect mapping + star-grid +
-  nebula radiance (bhx.procedural semantics, reference sky.wgsl:17-29),
-  composited into the residual transmission (ray.wgsl:587-592).  Tiles
-  whose rays are all fully absorbed skip the sky entirely.
-
-Both are wrapped in jax.custom_vjp whose backward recomputes through the
-*equivalent jnp implementation* (shared code paths in bhx.procedural), so
-pallas-mode renders are reverse-differentiable w.r.t. every scene quantity
-that flows through shading (disk params, rotation, time, mass via the
-gravitational shift, disk_gain) while the forward stays at kernel speed.
+It is wrapped in jax.custom_vjp whose backward recomputes through the
+*equivalent jnp implementation* (shared code in this module and
+bhx.procedural), so pallas-mode renders are reverse-differentiable w.r.t.
+every scene quantity that flows through shading (disk params, rotation,
+time, mass via the gravitational shift, disk_gain).
 """
 
 from __future__ import annotations
@@ -37,22 +23,20 @@ import functools
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as pltri
 
-from bhx.kernels.kmath import KXP
-from bhx.procedural import (
-    blackbody_tint_channels,
-    disk_texel_m,
-    sky_radiance_channels,
-)
+from bhx.kernels.march_pallas import _any
+from bhx.procedural import blackbody_tint_channels, disk_texel_m
 
-PI = 3.1415926  # reference constant (ray.wgsl:131)
+# Rays per program and warps per program.
+BLOCK = 256
+NUM_WARPS = 4
 
 # ---------------------------------------------------------------------------
 # Deferred disk-slot shading
 # ---------------------------------------------------------------------------
 
-# Scalar parameter vector (SMEM) for the shade kernel.
+# Scalar parameter vector for the shade kernel.
 _SP = dict(
     bh_x=0, bh_y=1, bh_z=2, mass=3, disk_inner=4, disk_outer=5,
     r00=6, r01=7, r02=8, r10=9, r11=10, r12=11, r20=12, r21=13, r22=14,
@@ -62,9 +46,6 @@ NUM_SHADE_PARAMS = len(_SP)
 
 # Per-slot input layout (march kernel record): hx, hy, hz, dx, dy, dz, valid.
 SLOT_FIELDS = 7
-# Per-slot ingredient output layout.
-ING = dict(od=0, m=1, tint_r=2, tint_g=3, tint_b=4, u=5, v=6)
-ING_FIELDS = len(ING)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -72,16 +53,11 @@ class ShadeKernelConfig:
     max_crossings: int = 4
     show_texture: bool = True
     show_redshift: bool = True
-    sublanes: int = 8
     interpret: bool = False
 
-    @property
-    def lanes(self) -> int:
-        return self.sublanes * 128
 
-
-def _slot_ingredients(hx, hy, hz, dx, dy, dz, cam_dist, p, kcfg, xp=jnp):
-    """Shading ingredients for one slot's (plane-shaped) geometry.
+def _slot_ingredients(hx, hy, hz, dx, dy, dz, cam_dist, p, kcfg):
+    """Shading ingredients (od, m, tint rgb, u, v) for one slot's geometry.
 
     Shared elementwise math for the kernel body AND the jnp reference /
     backward path (reference hit_black_hole disk branch, ray.wgsl:612-662).
@@ -99,12 +75,12 @@ def _slot_ingredients(hx, hy, hz, dx, dy, dz, cam_dist, p, kcfg, xp=jnp):
     abs2 = hx * hx + hy * hy + hz * hz
     abs_dist = abs2 * jax.lax.rsqrt(abs2 + 1e-20)
     density = 1.0 - abs_dist / p["disk_outer"]
-    tt = xp.clip(dist - p["disk_inner"], 0.0, 1.0)
+    tt = jnp.clip(dist - p["disk_inner"], 0.0, 1.0)
     density = density * (tt * tt * (3.0 - 2.0 * tt))
-    density = xp.maximum(density * xp.sqrt(inv_dist), 0.0)
+    density = jnp.maximum(density * jnp.sqrt(inv_dist), 0.0)
     x = 30.0 * density
-    od = xp.where(
-        x > 0.0, xp.exp(1.3 * xp.log(xp.maximum(x, 1e-20))), 0.0
+    od = jnp.where(
+        x > 0.0, jnp.exp(1.3 * jnp.log(jnp.maximum(x, 1e-20))), 0.0
     )
 
     if kcfg.show_texture:
@@ -118,84 +94,62 @@ def _slot_ingredients(hx, hy, hz, dx, dy, dz, cam_dist, p, kcfg, xp=jnp):
         # arctan2's gradient at (0, 0) is 0/0: INVALID slots sit exactly
         # there (zero geometry, hole at origin), and although their
         # cotangents are select-masked to 0 downstream, the 0 * nan of
-        # the arctan2 grad leaks into the SCALAR disk_outer cotangent,
-        # which sums over lanes by multiplication (the 1080p GRAD_CONFIG4
-        # run measured exactly d/d(disk_outer) = NaN with every other
-        # partial finite).  Substitute x=1 on degenerate lanes via a
-        # select — forward unchanged (arctan2(0,1) == arctan2(0,0) == 0),
-        # gradient finite, select kills the NaN.
+        # the arctan2 grad leaks into the SCALAR disk_outer cotangent.
+        # Substitute x=1 on degenerate lanes via a select — forward
+        # unchanged (arctan2(0,1) == arctan2(0,0) == 0), gradient finite.
         degen = rot_x * rot_x + rot_z * rot_z < 1e-24
-        angle = -xp.arctan2(rot_z, xp.where(degen, 1.0, rot_x))
+        angle = -jnp.arctan2(rot_z, jnp.where(degen, 1.0, rot_x))
         spun = angle + p["spun"]
-        u = (xp.sin(spun) * r_norm + 1.0) * 0.5
-        v = (xp.cos(spun) * r_norm + 1.0) * 0.5
-        m = disk_texel_m(u, v, xp)
+        u = (jnp.sin(spun) * r_norm + 1.0) * 0.5
+        v = (jnp.cos(spun) * r_norm + 1.0) * 0.5
+        m = disk_texel_m(u, v)
     else:
-        u = xp.zeros_like(od)
-        v = xp.zeros_like(od)
-        m = xp.zeros_like(od)
+        u = jnp.zeros_like(od)
+        v = jnp.zeros_like(od)
+        m = jnp.zeros_like(od)
 
     if kcfg.show_redshift:
         rhx = rx * inv_dist
         rhz = rz * inv_dist
         # shift_vec = 0.6 * cross(rhat, (0,-1,0)) = 0.6 * (rhz, 0, -rhx)
         velocity = 0.6 * (dx * rhz - dz * rhx)
-        doppler = xp.sqrt(
-            xp.maximum((1.0 - velocity) / (1.0 + velocity), 0.0)
+        doppler = jnp.sqrt(
+            jnp.maximum((1.0 - velocity) / (1.0 + velocity), 0.0)
         )
         rs = 2.0 * p["mass"]
-        grav = xp.sqrt(
-            xp.maximum(
-                (1.0 - rs / xp.maximum(dist, rs + 1e-3))
-                / (1.0 - rs / xp.maximum(cam_dist, rs + 1e-3)),
+        grav = jnp.sqrt(
+            jnp.maximum(
+                (1.0 - rs / jnp.maximum(dist, rs + 1e-3))
+                / (1.0 - rs / jnp.maximum(cam_dist, rs + 1e-3)),
                 0.0,
             )
         )
-        shift = xp.clip(grav * doppler, 0.0, 1.0)
+        shift = jnp.clip(grav * doppler, 0.0, 1.0)
         shift = shift * shift
-        tr, tg, tb = blackbody_tint_channels(shift, xp=xp)
+        tr, tg, tb = blackbody_tint_channels(shift)
     else:
-        tr = tg = tb = xp.ones_like(od)
+        tr = tg = tb = jnp.ones_like(od)
 
     return od, m, tr, tg, tb, u, v
 
 
-def _shade_kernel(params_ref, *refs, kcfg: ShadeKernelConfig):
-    # refs: K*SLOT_FIELDS slot-row refs, the cam-row ref, then
-    # K*ING_FIELDS output-row refs (tuple-of-rows I/O, march_pallas.py).
-    K = kcfg.max_crossings
-    nslots = K * SLOT_FIELDS
-    slot_refs = refs[:nslots]
-    cam_ref = refs[nslots]
-    out_refs = refs[nslots + 1:]
-    p = {name: params_ref[0, i] for name, i in _SP.items()}
-    cam_dist = cam_ref[0]
-    zeros = jnp.zeros_like(cam_dist)
-
-    for k in range(K):
-        sbase = k * SLOT_FIELDS
-        obase = k * ING_FIELDS
-        valid = slot_refs[sbase + 6][0]
-
-        # Zero-init so skipped tiles hold a well-defined (ignored) record.
-        for f in range(ING_FIELDS):
-            out_refs[obase + f][0] = zeros
-
-        @pl.when(jnp.any(valid > 0.5))
-        def _shade_k():
-            od, m, tr, tg, tb, u, v = _slot_ingredients(
-                slot_refs[sbase + 0][0], slot_refs[sbase + 1][0],
-                slot_refs[sbase + 2][0], slot_refs[sbase + 3][0],
-                slot_refs[sbase + 4][0], slot_refs[sbase + 5][0],
-                cam_dist, p, kcfg, xp=KXP,
-            )
-            out_refs[obase + ING["od"]][0] = od
-            out_refs[obase + ING["m"]][0] = m
-            out_refs[obase + ING["tint_r"]][0] = tr
-            out_refs[obase + ING["tint_g"]][0] = tg
-            out_refs[obase + ING["tint_b"]][0] = tb
-            out_refs[obase + ING["u"]][0] = u
-            out_refs[obase + ING["v"]][0] = v
+def _slot_rgb_opacity(ing, gain, kcfg: ShadeKernelConfig):
+    """(r, g, b, opacity) of one slot from its ingredients.  ``gain`` is
+    the sampled (r, g, b, a) disk_gain, or None.  Shared by the kernel and
+    the jnp reference."""
+    od, m, tr, tg, tb, _, _ = ing
+    opacity = jnp.clip(od * 0.2, 0.0, 1.0)
+    r = g = b = od
+    if kcfg.show_texture:
+        tex_a = m if gain is None else m * gain[3]
+        gr, gg, gb = (1.0, 1.0, 1.0) if gain is None else gain[:3]
+        r = r * m * gr * tex_a
+        g = g * m * gg * tex_a
+        b = b * m * gb * tex_a
+        opacity = opacity * jnp.clip(0.7 + tex_a * 0.5, 0.0, 1.0)
+    if kcfg.show_redshift:
+        r, g, b = r * tr, g * tg, b * tb
+    return r, g, b, opacity
 
 
 def pack_shade_params(black_hole, rot_mat, time) -> jnp.ndarray:
@@ -212,332 +166,156 @@ def pack_shade_params(black_hole, rot_mat, time) -> jnp.ndarray:
     return jnp.stack([jnp.asarray(v, jnp.float32) for v in vals])
 
 
-def _ingredients_pallas(slots, cam_dist, params, kcfg: ShadeKernelConfig):
-    """slots: tuple of K*SLOT_FIELDS (N,) rows -> tuple of K*ING_FIELDS
-    (N,) rows.
-
-    Tuple-of-rows I/O: every row is its own contiguous (tiles, s8, 128)
-    array (free reshape), each per-tile DMA one contiguous chunk, no
-    stacking at the call boundary — the old (N, K, 7) layout forced
-    lane-granularity transposes costing ~20 ms/frame at 1080p
-    (scripts/bisect_shade.py; same design as march_pallas).
-    """
-    K = kcfg.max_crossings
-    assert len(slots) == K * SLOT_FIELDS
-    n = slots[0].shape[0]
-    lanes = kcfg.lanes
-    s8 = kcfg.sublanes
-    pad = (-n) % lanes
-    npad = n + pad
-
-    def padrow(r, fill=0.0):
-        if pad == 0:
-            return r
-        return jnp.concatenate([r, jnp.full((pad,), fill, r.dtype)])
-
-    tiles = npad // lanes
-    fout = K * ING_FIELDS
-    rows = [padrow(r).reshape(tiles, s8, 128) for r in slots]
-    cam_r = padrow(cam_dist, fill=1.0).reshape(tiles, s8, 128)
-    params2 = params.reshape(1, NUM_SHADE_PARAMS)
-    row_spec = pl.BlockSpec((1, s8, 128), lambda i: (i, 0, 0),
-                            memory_space=pltpu.VMEM)
-
-    out = pl.pallas_call(
-        functools.partial(_shade_kernel, kcfg=kcfg),
-        grid=(tiles,),
-        in_specs=[
-            pl.BlockSpec((1, NUM_SHADE_PARAMS), lambda i: (0, 0),
-                         memory_space=pltpu.SMEM),
-        ] + [row_spec] * (len(rows) + 1),
-        out_specs=[row_spec] * fout,
-        out_shape=[
-            jax.ShapeDtypeStruct((tiles, s8, 128), jnp.float32)
-        ] * fout,
-        interpret=kcfg.interpret,
-    )(params2, *rows, cam_r)
-
-    return tuple(o.reshape(npad)[:n] for o in out)
-
-
-def _ingredients_jnp(slots, cam_dist, params, kcfg: ShadeKernelConfig):
-    """jnp reference of the shade kernel (used for the custom_vjp backward
-    and for interpret-free CPU parity tests).  Same tuple-of-rows
-    contract: K*SLOT_FIELDS rows -> K*ING_FIELDS rows."""
-    p = {name: params[i] for name, i in _SP.items()}
-    K = kcfg.max_crossings
-    out = []
-    for k in range(K):
-        s = k * SLOT_FIELDS
-        out.extend(
-            _slot_ingredients(
-                slots[s + 0], slots[s + 1], slots[s + 2],
-                slots[s + 3], slots[s + 4], slots[s + 5],
-                cam_dist, p, kcfg, xp=jnp,
-            )
-        )
-    return tuple(out)
-
-
-@functools.partial(jax.custom_vjp, nondiff_argnums=(3,))
-def shade_ingredients(slots, cam_dist, params, kcfg: ShadeKernelConfig):
-    """Per-slot shading ingredients as a tuple of K*ING_FIELDS (n,) rows:
-    od, m, tint rgb, u, v per slot.
-
-    Forward runs the Pallas kernel; backward re-derives through the jnp
-    reference (recompute-based adjoint — shading is cheap to replay and
-    the two implementations share their elementwise math).
-    """
-    return _ingredients_pallas(slots, cam_dist, params, kcfg)
-
-
-def _shade_fwd(slots, cam_dist, params, kcfg):
-    return shade_ingredients(slots, cam_dist, params, kcfg), (
-        slots, cam_dist, params,
-    )
-
-
-def _shade_bwd(kcfg, res, g):
-    slots, cam_dist, params = res
-    _, vjp = jax.vjp(
-        lambda s, c, p: _ingredients_jnp(s, c, p, kcfg), slots, cam_dist, params
-    )
-    return vjp(g)
-
-
-shade_ingredients.defvjp(_shade_fwd, _shade_bwd)
-
-
-def composite_ingredients(ing, valid, disk_gain, kcfg: ShadeKernelConfig):
-    """Front-to-back composite of shaded slots: (color (n,3), trans (n,)).
-
-    ``ing`` is a tuple of K*ING_FIELDS (n,) rows; ``valid`` a list of K
-    (n,) bool rows.  jnp — differentiable w.r.t. ``disk_gain`` (the coarse
-    learnable texture grid, sampled gather-free on the MXU) and, through
-    the ingredients' custom_vjp, w.r.t. scene geometry.  Semantics match
-    bhx.shading.disk_shade + the reference compositing (ray.wgsl:571-580);
-    the K-step running-transmission loop IS the cumprod, written as a
-    Python loop over rows.
-    """
-    K = kcfg.max_crossings
-    n = ing[0].shape[0]
-    trans = jnp.ones((n,), jnp.float32)
-    acc = [jnp.zeros((n,), jnp.float32) for _ in range(3)]
-    for k in range(K):
-        g = ing[k * ING_FIELDS:(k + 1) * ING_FIELDS]
-        od = g[ING["od"]]
-        opacity = jnp.clip(od * 0.2, 0.0, 1.0)
-        rgb = [od, od, od]
-        if kcfg.show_texture:
-            m = g[ING["m"]]
-            if disk_gain is not None:
-                from bhx.shading import sample_grid_mxu
-
-                gain = sample_grid_mxu(disk_gain, g[ING["u"]], g[ING["v"]])
-                tex_a = m * gain[..., 3]
-                rgb = [rgb[c] * m * gain[..., c] * tex_a for c in range(3)]
-            else:
-                tex_a = m
-                rgb = [rgb[c] * m * tex_a for c in range(3)]
-            opacity = opacity * jnp.clip(0.7 + tex_a * 0.5, 0.0, 1.0)
-        if kcfg.show_redshift:
-            tints = (g[ING["tint_r"]], g[ING["tint_g"]], g[ING["tint_b"]])
-            rgb = [rgb[c] * tints[c] for c in range(3)]
-        op = jnp.where(valid[k], opacity, 0.0)
-        w = trans * op
-        for c in range(3):
-            acc[c] = acc[c] + w * jnp.clip(rgb[c], 0.0, 1.0)
-        trans = trans * (1.0 - op)
-    return jnp.stack(acc, axis=-1), trans
-
-
-# ---------------------------------------------------------------------------
-# Fused shade + composite: slots -> (rgb, transmission) in one kernel
-# ---------------------------------------------------------------------------
-
-
-def _gain_bilinear_hat(u, v, gain_ref, gh: int, gw: int, xp=jnp):
-    """Per-lane bilinear sample of the (gh, gw, 4) gain grid, gather-free.
-
-    Kernel-side mirror of bhx.shading.sample_grid_mxu: clamp-addressed
-    bilinear with texel centers at (i + 0.5)/size, written as a dense
-    hat-basis contraction — per-lane gathers don't exist on the VPU, so
-    every grid node contributes through its hat weight (zero except for
-    the 2x2 footprint).  The gh*gw cell sweep is a fori_loop with dynamic
-    SMEM scalar reads rather than a fully unrolled chain: the unrolled
-    16x16x4 version cost ~9 s of Mosaic compile per kernel instantiation
-    (4 per ladder frame) for identical runtime under the slot/tile
-    skipping.  ``gain_ref`` is the flattened grid in SMEM ((1, gh*gw*4)).
-    """
+def _gain_bilinear(u, v, gain_ref, gh: int, gw: int):
+    """Per-lane bilinear sample of the flattened (gh, gw, 4) gain grid:
+    clamp-addressed, texel centers at (i + 0.5)/size — the math of
+    bhx.shading.sample_grid_mxu — as indexed loads of the 4 corners."""
     x = jnp.clip(u * gw - 0.5, 0.0, gw - 1.0)
     y = jnp.clip(v * gh - 0.5, 0.0, gh - 1.0)
-    zeros = jnp.zeros_like(x)
-    bx = [jnp.maximum(1.0 - jnp.abs(x - float(w)), 0.0) for w in range(gw)]
+    x0 = jnp.floor(x)
+    y0 = jnp.floor(y)
+    fx = x - x0
+    fy = y - y0
+    x0i = x0.astype(jnp.int32)
+    y0i = y0.astype(jnp.int32)
+    x1i = jnp.minimum(x0i + 1, gw - 1)
+    y1i = jnp.minimum(y0i + 1, gh - 1)
 
-    # Unroll a few rows per loop iteration: a fully unrolled gh*gw sweep
-    # costs ~9 s Mosaic compile per instantiation, a per-cell loop costs
-    # ~1.5 ms/frame of scalar-loop overhead; 4 rows/iter gets both within
-    # a few percent of their best.
-    rpi = 4 if gh % 4 == 0 else (2 if gh % 2 == 0 else 1)
+    def corner(yi, xi):
+        base = (yi * gw + xi) * 4
+        return [pltri.load(gain_ref.at[base + c]) for c in range(4)]
 
-    def rows_block(i, acc):
-        h0 = i * rpi
-        a0, a1, a2, a3 = acc
-        for dh in range(rpi):
-            h = h0 + dh
-            by = jnp.maximum(
-                1.0 - jnp.abs(y - h.astype(jnp.float32)), 0.0
-            )
-            base = h * (gw * 4)
-            for w in range(gw):
-                p = by * bx[w]
-                a0 = a0 + p * gain_ref[0, base + w * 4]
-                a1 = a1 + p * gain_ref[0, base + w * 4 + 1]
-                a2 = a2 + p * gain_ref[0, base + w * 4 + 2]
-                a3 = a3 + p * gain_ref[0, base + w * 4 + 3]
-        return (a0, a1, a2, a3)
-
-    return list(
-        jax.lax.fori_loop(
-            0, gh // rpi, rows_block, (zeros, zeros, zeros, zeros)
-        )
-    )
+    c00, c01 = corner(y0i, x0i), corner(y0i, x1i)
+    c10, c11 = corner(y1i, x0i), corner(y1i, x1i)
+    return [
+        (c00[c] * (1.0 - fx) + c01[c] * fx) * (1.0 - fy)
+        + (c10[c] * (1.0 - fx) + c11[c] * fx) * fy
+        for c in range(4)
+    ]
 
 
 def _composite_kernel(params_ref, gain_ref, *refs,
                       kcfg: ShadeKernelConfig, gain_shape):
-    """Fused per-tile shade + front-to-back composite.
+    """Fused per-block shade + front-to-back composite.
 
     refs: K*SLOT_FIELDS slot rows, cam row, then outputs r, g, b, trans.
-    The running composite state (acc rgb, transmission) lives in the
-    output refs so each slot's pl.when region can read-modify-write it —
-    slot k's block is skipped entirely when the tile has no valid slot-k
-    crossing (crossing-free tiles, ~85%% of the frame, cost nothing).
+    The running composite (rgb, transmission) is the carry of one
+    ``lax.cond`` per slot, which skips slot k's shading when no ray of the
+    block has a valid slot-k crossing.
     """
     K = kcfg.max_crossings
     nslots = K * SLOT_FIELDS
     slot_refs = refs[:nslots]
     cam_ref = refs[nslots]
-    out_r, out_g, out_b, out_t = refs[nslots + 1:nslots + 5]
-    p = {name: params_ref[0, i] for name, i in _SP.items()}
-    cam_dist = cam_ref[0]
+    out_refs = refs[nslots + 1:nslots + 5]
+    p = {name: params_ref[i] for name, i in _SP.items()}
+    cam_dist = cam_ref[...]
     zeros = jnp.zeros_like(cam_dist)
-
-    out_r[0] = zeros
-    out_g[0] = zeros
-    out_b[0] = zeros
-    out_t[0] = zeros + 1.0
+    acc = (zeros, zeros, zeros, zeros + 1.0)
 
     for k in range(K):
         sbase = k * SLOT_FIELDS
-        valid = slot_refs[sbase + 6][0] > 0.5
+        valid = slot_refs[sbase + 6][...] > 0.5
 
-        @pl.when(jnp.any(valid))
-        def _slot_k(sbase=sbase, valid=valid):
-            od, m, tr, tg, tb, u, v = _slot_ingredients(
-                slot_refs[sbase + 0][0], slot_refs[sbase + 1][0],
-                slot_refs[sbase + 2][0], slot_refs[sbase + 3][0],
-                slot_refs[sbase + 4][0], slot_refs[sbase + 5][0],
-                cam_dist, p, kcfg, xp=KXP,
+        def shade(acc, sbase=sbase, valid=valid):
+            ing = _slot_ingredients(
+                *(slot_refs[sbase + f][...] for f in range(6)),
+                cam_dist, p, kcfg,
             )
-            opacity = jnp.clip(od * 0.2, 0.0, 1.0)
-            r = g = b = od
-            if kcfg.show_texture:
-                if gain_shape is not None:
-                    gh, gw = gain_shape
-                    ga = _gain_bilinear_hat(u, v, gain_ref, gh, gw, xp=KXP)
-                    tex_a = m * ga[3]
-                    r = r * m * ga[0] * tex_a
-                    g = g * m * ga[1] * tex_a
-                    b = b * m * ga[2] * tex_a
-                else:
-                    tex_a = m
-                    r = r * m * tex_a
-                    g = g * m * tex_a
-                    b = b * m * tex_a
-                opacity = opacity * jnp.clip(0.7 + tex_a * 0.5, 0.0, 1.0)
-            if kcfg.show_redshift:
-                r = r * tr
-                g = g * tg
-                b = b * tb
+            gain = None
+            if kcfg.show_texture and gain_shape is not None:
+                gain = _gain_bilinear(ing[5], ing[6], gain_ref, *gain_shape)
+            r, g, b, opacity = _slot_rgb_opacity(ing, gain, kcfg)
+            ar, ag, ab, trans = acc
             op = jnp.where(valid, opacity, 0.0)
-            trans = out_t[0]
             w = trans * op
-            out_r[0] = out_r[0] + w * jnp.clip(r, 0.0, 1.0)
-            out_g[0] = out_g[0] + w * jnp.clip(g, 0.0, 1.0)
-            out_b[0] = out_b[0] + w * jnp.clip(b, 0.0, 1.0)
-            out_t[0] = trans * (1.0 - op)
+            return (
+                ar + w * jnp.clip(r, 0.0, 1.0),
+                ag + w * jnp.clip(g, 0.0, 1.0),
+                ab + w * jnp.clip(b, 0.0, 1.0),
+                trans * (1.0 - op),
+            )
+
+        acc = jax.lax.cond(_any(valid), shade, lambda a: a, acc)
+
+    for ref, val in zip(out_refs, acc):
+        ref[...] = val
+
+
+def _pad_to(x, size: int, fill=0.0):
+    pad = size - x.shape[0]
+    if pad == 0:
+        return x
+    return jnp.concatenate([x, jnp.full((pad,), fill, x.dtype)])
 
 
 def _composite_pallas(slots, cam_dist, params, gain, kcfg: ShadeKernelConfig):
     K = kcfg.max_crossings
     assert len(slots) == K * SLOT_FIELDS
     n = slots[0].shape[0]
-    lanes = kcfg.lanes
-    s8 = kcfg.sublanes
-    pad = (-n) % lanes
-    npad = n + pad
-
-    def padrow(r, fill=0.0):
-        if pad == 0:
-            return r
-        return jnp.concatenate([r, jnp.full((pad,), fill, r.dtype)])
-
-    tiles = npad // lanes
-    rows = [padrow(r).reshape(tiles, s8, 128) for r in slots]
-    cam_r = padrow(cam_dist, fill=1.0).reshape(tiles, s8, 128)
-    params2 = params.reshape(1, NUM_SHADE_PARAMS)
+    npad = -(-n // BLOCK) * BLOCK
+    rows = [_pad_to(r, npad) for r in slots]
+    cam_r = _pad_to(cam_dist, npad, fill=1.0)
+    params_p = _pad_to(params.astype(jnp.float32), 32)
     if gain is not None:
         gain_shape = (gain.shape[0], gain.shape[1])
-        gain_flat = gain.reshape(1, -1).astype(jnp.float32)
+        flat = gain.reshape(-1).astype(jnp.float32)
+        gain_p = _pad_to(flat, 1 << max(0, (flat.shape[0] - 1).bit_length()))
     else:
         gain_shape = None
-        gain_flat = jnp.zeros((1, 4), jnp.float32)
-    row_spec = pl.BlockSpec((1, s8, 128), lambda i: (i, 0, 0),
-                            memory_space=pltpu.VMEM)
+        gain_p = jnp.zeros((4,), jnp.float32)
+    row_spec = pl.BlockSpec((BLOCK,), lambda i: (i,))
 
     out = pl.pallas_call(
         functools.partial(
             _composite_kernel, kcfg=kcfg, gain_shape=gain_shape
         ),
-        grid=(tiles,),
+        grid=(npad // BLOCK,),
         in_specs=[
-            pl.BlockSpec((1, NUM_SHADE_PARAMS), lambda i: (0, 0),
-                         memory_space=pltpu.SMEM),
-            pl.BlockSpec((1, gain_flat.shape[1]), lambda i: (0, 0),
-                         memory_space=pltpu.SMEM),
+            pl.BlockSpec((32,), lambda i: (0,)),
+            pl.BlockSpec(gain_p.shape, lambda i: (0,)),
         ] + [row_spec] * (len(rows) + 1),
         out_specs=[row_spec] * 4,
-        out_shape=[
-            jax.ShapeDtypeStruct((tiles, s8, 128), jnp.float32)
-        ] * 4,
+        out_shape=[jax.ShapeDtypeStruct((npad,), jnp.float32)] * 4,
+        compiler_params=pltri.CompilerParams(num_warps=NUM_WARPS),
         interpret=kcfg.interpret,
-    )(params2, gain_flat, *rows, cam_r)
+        name="bhx_shade_composite",
+    )(params_p, gain_p, *rows, cam_r)
 
-    return tuple(o.reshape(npad)[:n] for o in out)
+    return tuple(o[:n] for o in out)
 
 
 def _composite_jnp(slots, cam_dist, params, gain, kcfg: ShadeKernelConfig):
-    """jnp mirror of the fused kernel: ingredients + composite via the
-    shared math (used for the custom_vjp backward and parity tests).
-    Returns (r, g, b, trans) rows like the kernel."""
-    ing = _ingredients_jnp(slots, cam_dist, params, kcfg)
-    K = kcfg.max_crossings
-    valid = [slots[k * SLOT_FIELDS + 6] > 0.5 for k in range(K)]
-    color, trans = composite_ingredients(ing, valid, gain, kcfg)
-    return color[..., 0], color[..., 1], color[..., 2], trans
+    """jnp reference of the fused kernel (the custom_vjp backward and the
+    parity oracle).  Returns (r, g, b, trans) rows like the kernel."""
+    from bhx.shading import sample_grid_mxu
+
+    p = {name: params[i] for name, i in _SP.items()}
+    n = cam_dist.shape[0]
+    acc = [jnp.zeros((n,), jnp.float32) for _ in range(3)]
+    trans = jnp.ones((n,), jnp.float32)
+    for k in range(kcfg.max_crossings):
+        s = k * SLOT_FIELDS
+        ing = _slot_ingredients(*slots[s:s + 6], cam_dist, p, kcfg)
+        g = None
+        if kcfg.show_texture and gain is not None:
+            sampled = sample_grid_mxu(gain, ing[5], ing[6])
+            g = [sampled[..., c] for c in range(4)]
+        r, gg, b, opacity = _slot_rgb_opacity(ing, g, kcfg)
+        op = jnp.where(slots[s + 6] > 0.5, opacity, 0.0)
+        w = trans * op
+        for c, val in enumerate((r, gg, b)):
+            acc[c] = acc[c] + w * jnp.clip(val, 0.0, 1.0)
+        trans = trans * (1.0 - op)
+    return acc[0], acc[1], acc[2], trans
 
 
 @functools.partial(jax.custom_vjp, nondiff_argnums=(4,))
 def shade_composite(slots, cam_dist, params, gain, kcfg: ShadeKernelConfig):
     """Fused deferred-shade composite: slot rows -> (r, g, b, trans) rows.
 
-    One kernel pass does what shade_ingredients + composite_ingredients did
-    in two (28 intermediate full-frame rows + an MXU gain-sample with
-    (n, G*C) intermediates): slot-skipped ingredient math, in-kernel
-    hat-basis gain sampling, and the front-to-back composite, emitting just
-    4 rows.  Forward = Pallas; backward recomputes through the shared jnp
-    math (differentiable w.r.t. slots, cam_dist, params, and gain).
+    Forward = Pallas; backward recomputes through the shared jnp math
+    (differentiable w.r.t. slots, cam_dist, params, and gain).
     """
     return _composite_pallas(slots, cam_dist, params, gain, kcfg)
 
@@ -564,208 +342,3 @@ def _composite_bwd(kcfg, res, g):
 
 
 shade_composite.defvjp(_composite_fwd, _composite_bwd)
-
-
-# ---------------------------------------------------------------------------
-# Sky finalize: record -> final rgb with procedural sky, composited once
-# ---------------------------------------------------------------------------
-
-
-@dataclasses.dataclass(frozen=True)
-class SkyKernelConfig:
-    show_sky: bool = True
-    sublanes: int = 8
-    interpret: bool = False
-
-    @property
-    def lanes(self) -> int:
-        return self.sublanes * 128
-
-
-def _sky_channels_from_dir(dx, dy, dz, xp=jnp):
-    """Equirect uv (bhx.shading.sky_uv, reference sky.wgsl:20-22) + star-grid
-    radiance, channelwise."""
-    theta = xp.arctan2(xp.sqrt(dx * dx + dz * dz), dy)
-    phi = xp.arctan2(dz, dx)
-    u = ((phi + 2.6 * PI) / (2.0 * PI)) % 1.0
-    v = ((PI - theta) / PI) % 1.0
-    return sky_radiance_channels(u, v, xp)
-
-
-def _sky_rows_kernel(*refs, kcfg: SkyKernelConfig):
-    # refs: 8 record rows (cr, cg, cb, alpha, amount, dx, dy, dz), then
-    # 3 output rows (r, g, b).  Pure row I/O — no channel interleaving, so
-    # callers that keep the record as planes pay zero relayout.
-    cr = refs[0][0]
-    cg = refs[1][0]
-    cb = refs[2][0]
-    amount = refs[4][0]
-    out_r, out_g, out_b = refs[8], refs[9], refs[10]
-
-    out_r[0] = cr
-    out_g[0] = cg
-    out_b[0] = cb
-
-    if kcfg.show_sky:
-        w = jnp.where(amount > 0.001, amount, 0.0)
-
-        @pl.when(jnp.any(w > 0.0))
-        def _sky():
-            sr, sg, sb = _sky_channels_from_dir(
-                refs[5][0], refs[6][0], refs[7][0], xp=KXP
-            )
-            out_r[0] = cr + w * sr
-            out_g[0] = cg + w * sg
-            out_b[0] = cb + w * sb
-
-
-def _sky_rows_pallas(rows, kcfg: SkyKernelConfig):
-    n = rows[0].shape[0]
-    lanes = kcfg.lanes
-    s8 = kcfg.sublanes
-    pad = (-n) % lanes
-    npad = n + pad
-
-    def padrow(r):
-        if pad == 0:
-            return r
-        return jnp.concatenate([r, jnp.zeros((pad,), r.dtype)])
-
-    tiles = npad // lanes
-    rows_r = [padrow(r).reshape(tiles, s8, 128) for r in rows]
-    row_spec = pl.BlockSpec((1, s8, 128), lambda i: (i, 0, 0),
-                            memory_space=pltpu.VMEM)
-
-    out = pl.pallas_call(
-        functools.partial(_sky_rows_kernel, kcfg=kcfg),
-        grid=(tiles,),
-        in_specs=[row_spec] * 8,
-        out_specs=[row_spec] * 3,
-        out_shape=[
-            jax.ShapeDtypeStruct((tiles, s8, 128), jnp.float32)
-        ] * 3,
-        interpret=kcfg.interpret,
-    )(*rows_r)
-
-    return tuple(o.reshape(npad)[:n] for o in out)
-
-
-def _sky_rows_jnp(rows, kcfg: SkyKernelConfig):
-    cr, cg, cb, _, amount, dx, dy, dz = rows
-    if not kcfg.show_sky:
-        return cr, cg, cb
-    w = jnp.where(amount > 0.001, amount, 0.0)
-    sr, sg, sb = _sky_channels_from_dir(dx, dy, dz)
-    return cr + w * sr, cg + w * sg, cb + w * sb
-
-
-@functools.partial(jax.custom_vjp, nondiff_argnums=(1,))
-def sky_finalize_rows(rows, kcfg: SkyKernelConfig):
-    """8 record rows -> 3 final rgb rows; procedural sky composited into
-    the residual transmission exactly once (reference ray.wgsl:587-592 +
-    sky.wgsl).  The rows-native variant of sky_finalize: when the caller
-    keeps the record as planes, there is no (N, 8) interleave to build and
-    no lane-granularity transpose into the kernel (~4 ms/frame at 1080p).
-    Pallas forward, jnp-recompute backward."""
-    return _sky_rows_pallas(rows, kcfg)
-
-
-def _sky_rows_fwd(rows, kcfg):
-    return sky_finalize_rows(rows, kcfg), (rows,)
-
-
-def _sky_rows_bwd(kcfg, res, g):
-    (rows,) = res
-    _, vjp = jax.vjp(lambda r: _sky_rows_jnp(r, kcfg), rows)
-    return vjp(g)
-
-
-sky_finalize_rows.defvjp(_sky_rows_fwd, _sky_rows_bwd)
-
-
-def _sky_kernel(rec_ref, out_ref, *, kcfg: SkyKernelConfig):
-    # Record planes: color(3), alpha, amount, dir(3) (tracer record layout).
-    cr = rec_ref[0, 0]
-    cg = rec_ref[0, 1]
-    cb = rec_ref[0, 2]
-    amount = rec_ref[0, 4]
-
-    out_ref[0, 0] = cr
-    out_ref[0, 1] = cg
-    out_ref[0, 2] = cb
-
-    if kcfg.show_sky:
-        w = jnp.where(amount > 0.001, amount, 0.0)
-
-        @pl.when(jnp.any(w > 0.0))
-        def _sky():
-            sr, sg, sb = _sky_channels_from_dir(
-                rec_ref[0, 5], rec_ref[0, 6], rec_ref[0, 7], xp=KXP
-            )
-            out_ref[0, 0] = cr + w * sr
-            out_ref[0, 1] = cg + w * sg
-            out_ref[0, 2] = cb + w * sb
-
-
-def _sky_finalize_pallas(record, kcfg: SkyKernelConfig):
-    shape = record.shape
-    rec = record.reshape(-1, 8)
-    n = rec.shape[0]
-    lanes = kcfg.lanes
-    s8 = kcfg.sublanes
-    pad = (-n) % lanes
-    npad = n + pad
-    if pad:
-        rec = jnp.concatenate([rec, jnp.zeros((pad, 8), rec.dtype)], axis=0)
-    tiles = npad // lanes
-    rec_t = rec.reshape(tiles, s8, 128, 8).transpose(0, 3, 1, 2)
-
-    out = pl.pallas_call(
-        functools.partial(_sky_kernel, kcfg=kcfg),
-        grid=(tiles,),
-        in_specs=[
-            pl.BlockSpec((1, 8, s8, 128), lambda i: (i, 0, 0, 0),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_specs=pl.BlockSpec((1, 3, s8, 128), lambda i: (i, 0, 0, 0),
-                               memory_space=pltpu.VMEM),
-        out_shape=jax.ShapeDtypeStruct((tiles, 3, s8, 128), jnp.float32),
-        interpret=kcfg.interpret,
-    )(rec_t)
-
-    out = out.transpose(0, 2, 3, 1).reshape(npad, 3)[:n]
-    return out.reshape(shape[:-1] + (3,))
-
-
-def _sky_finalize_jnp(record, kcfg: SkyKernelConfig):
-    color = record[..., 0:3]
-    if not kcfg.show_sky:
-        return color
-    amount = record[..., 4]
-    w = jnp.where(amount > 0.001, amount, 0.0)
-    sr, sg, sb = _sky_channels_from_dir(
-        record[..., 5], record[..., 6], record[..., 7]
-    )
-    sky = jnp.stack([sr, sg, sb], axis=-1)
-    return color + w[..., None] * sky
-
-
-@functools.partial(jax.custom_vjp, nondiff_argnums=(1,))
-def sky_finalize(record, kcfg: SkyKernelConfig):
-    """record (..., 8) -> final rgb (..., 3); procedural sky composited into
-    the residual transmission exactly once (reference ray.wgsl:587-592 +
-    sky.wgsl).  Pallas forward, jnp-recompute backward."""
-    return _sky_finalize_pallas(record, kcfg)
-
-
-def _sky_fwd(record, kcfg):
-    return sky_finalize(record, kcfg), (record,)
-
-
-def _sky_bwd(kcfg, res, g):
-    (record,) = res
-    _, vjp = jax.vjp(lambda r: _sky_finalize_jnp(r, kcfg), record)
-    return vjp(g)
-
-
-sky_finalize.defvjp(_sky_fwd, _sky_bwd)

@@ -16,11 +16,8 @@ pipeline invocation.
 
 Layout: the record travels as 8 per-channel PLANES ((H, W) each) and the
 post chain as a channel-major (3, H, W) image — structure-of-arrays
-end-to-end.  An interleaved (H, W, 8) record puts the channel dim in the
-TPU lane dimension (8 of 128 lanes used), taxing every elementwise op in
-the refine/post stages ~16x its bandwidth and forcing lane-granularity
-transposes at the Pallas kernel boundaries; planes make every op
-full-width and every kernel boundary a free reshape.
+end-to-end: the Pallas kernels consume rows, so every kernel boundary is
+a free reshape and no interleave/deinterleave is ever built.
 """
 
 from __future__ import annotations
@@ -169,7 +166,7 @@ def _refine_level(prev_rows, scene: Scene, cfg: RenderConfig, width: int,
     # --- masked dense retrace ---
     # Trace the whole level with the needs mask as the initial active set:
     # dead lanes stream through the march kernel untouched (its while cond
-    # votes per tile), so traced work tracks the needs count while every
+    # votes per block), so traced work tracks the needs count while every
     # shape stays static and the level is one pipeline invocation.
     needs_flat = needs.reshape(-1)
     res = trace_rays_record_rows(
@@ -233,32 +230,10 @@ def render(scene: Scene, cfg: RenderConfig = RenderConfig()):
         rows = trace_image_record_rows(scene, cfg, cfg.width, cfg.height)
 
     # ONE sky pass for the whole frame (hit pixels' residual transmission
-    # and escapes' full sky in the same formula).  In pallas+procedural
-    # mode the star-grid radiance runs as a Pallas kernel — XLA evaluates
-    # the same math ~10x off roofline (239 ms/frame measured at 1080p).
-    h, w = rows[0].shape
-    if (
-        cfg.texture_mode == "procedural"
-        and cfg.march_mode in ("pallas", "pallas_interpret")
-    ):
-        from bhx.kernels.shade_pallas import SkyKernelConfig, sky_finalize_rows
-        from bhx.tracer import _shade_sublanes
-
-        flat = tuple(r.reshape(-1) for r in rows)
-        rgb_rows = sky_finalize_rows(
-            flat,
-            SkyKernelConfig(
-                show_sky=cfg.show_sky,
-                sublanes=_shade_sublanes(h * w, cfg),
-                interpret=cfg.march_mode == "pallas_interpret",
-            ),
-        )
-        chw = jnp.stack([r.reshape(h, w) for r in rgb_rows])
-    else:
-        rgb_rows = finalize_image_rows(
-            rows, scene.sky_texture, cfg.show_sky, cfg.texture_mode
-        )
-        chw = jnp.stack(rgb_rows)
+    # and escapes' full sky in the same formula).
+    chw = jnp.stack(finalize_image_rows(
+        rows, scene.sky_texture, cfg.show_sky, cfg.texture_mode
+    ))
 
     # Post chain, channel-major (3, H, W): elementwise ops get lanes from
     # W and the bloom matmuls batch over channels.

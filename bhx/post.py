@@ -36,7 +36,7 @@ def _resample_matrix(src: int, out: int, taps: tuple) -> np.ndarray:
     ``x = (i + 0.5) * src / out - 0.5 + off`` for every (off, w) in taps
     (off in *source texels*), bilinearly with clamp-to-edge — the exact
     math of a GPU linear sampler at uv offsets, but expressed as a dense
-    matrix so a whole separable filter pass is one MXU matmul instead of
+    matrix so a whole separable filter pass is one matmul instead of
     millions of gathers.
     """
     m = np.zeros((out, src), np.float32)
@@ -56,16 +56,19 @@ def _separable_pass(chw, taps_y: tuple, taps_x: tuple, out_wh):
 
     Operates channel-major ((C, H, W) in and out): with channels as the
     batch dim both contractions are well-shaped (out, src) x (src, other)
-    MXU matmuls.  The previous (H, W, C) form made the second contraction
-    a per-row (q, w) x (w, 3) matmul — 3 of 128 MXU lanes useful — which
-    measured 24 ms for the 1080p pyramid; channel-major is ~10x less.
+    matmuls (an (H, W, C) form makes the second one a per-row
+    (q, w) x (w, 3) product).
     """
     out_w, out_h = out_wh
     src_h, src_w = chw.shape[1], chw.shape[2]
     my = jnp.asarray(_resample_matrix(src_h, out_h, taps_y))
     mx = jnp.asarray(_resample_matrix(src_w, out_w, taps_x))
-    tmp = jnp.einsum("ph,chw->cpw", my, chw)
-    return jnp.einsum("qw,cpw->cpq", mx, tmp)
+    # Full float32 products: on a GPU a default-precision float32 dot may
+    # run in TF32 (~3 decimal digits), which would put the bloom term off
+    # the float32 reference by more than the golden-image tolerance.
+    hi = jax.lax.Precision.HIGHEST
+    tmp = jnp.einsum("ph,chw->cpw", my, chw, precision=hi)
+    return jnp.einsum("qw,cpw->cpq", mx, tmp, precision=hi)
 
 
 def _uv_grid(width: int, height: int):
@@ -83,7 +86,7 @@ def bloom_downsample(img, out_wh: Tuple[int, int]):
     taps at {-2,0,+2}² texels with weights 0.5·[¼,½,¼]⊗[¼,½,¼]
     (0.03125 corners / 0.0625 edges / 0.125 center) plus taps at {-1,+1}²
     with weights 0.5·[½,½]⊗[½,½] (0.125 each) — so the whole pass is four
-    matmuls on the MXU instead of 52 gathers per output pixel.
+    matmuls instead of 52 gathers per output pixel.
     """
     group_a = ((-2.0, 0.25), (0.0, 0.5), (2.0, 0.25))
     group_b = ((-1.0, 0.5), (1.0, 0.5))
@@ -106,7 +109,7 @@ def bloom_upsample(img, out_wh: Tuple[int, int], radius_uv: float = 0.005):
 
 def bloom_chain_chw(chw, cfg: BloomConfig):
     """5-down / 5-up pyramid on a channel-major (3, H, W) image — the
-    native layout: all ten passes are batched MXU matmuls and no
+    native layout: all ten passes are batched matmuls and no
     transpose ever happens (reference res schedule renderer/mod.rs:219-256:
     res /= 2 five times then *= 2 five times, truncating to integers at
     each pass)."""
@@ -249,7 +252,7 @@ def fxaa_pass_chw(chw, cfg: FxaaConfig):
     step_len = jnp.where(is1, -step_len, step_len)
     l_avg = jnp.where(is1, 0.5 * (luma1 + l_c), 0.5 * (luma2 + l_c))
 
-    # --- edge walk, TPU-shaped: fixed-schedule shifts, ZERO gathers -------
+    # --- edge walk: fixed-schedule shifts, ZERO gathers -----------------
     # Two observations turn the data-dependent walk into pure stencil ops:
     #
     # 1. Every walk sample sits half a texel off-axis (currentUv ± 0.5·step

@@ -1,14 +1,11 @@
-"""Gather-free procedural texture evaluation (the TPU texture unit).
+"""Gather-free procedural texture evaluation.
 
-GPUs sample textures for free in hardware; on TPU every texel fetch is a
-gather, and gathers on this chip run at ~50M samples/s regardless of shape
-(measured: 40-70 ms for 2M samples) — hopeless for a hot path that wants
-tens of millions of samples per frame.  But all three reference textures
-are *procedural* (disk.png is baked by the perlin/ cargo tool,
-colourtemp.jpg is a blackbody ramp, sky.png is a star photo we replace with
-a star field), so the TPU-native design re-evaluates them arithmetically
-per sample: hash-gradient Perlin, a cell-hash star grid, and a polynomial
-fit of the Planck locus — pure VPU math, zero gathers.
+All three reference textures are *procedural* (disk.png is baked by the
+perlin/ cargo tool, colourtemp.jpg is a blackbody ramp, sky.png is a star
+photo we replace with a star field), so they are re-evaluated
+arithmetically per sample: hash-gradient Perlin, a cell-hash star grid,
+and a polynomial fit of the Planck locus — pure elementwise math, zero
+gathers, the same code in jnp, numpy and Pallas kernel bodies.
 
 `bhx.assets` bakes its array textures FROM these samplers, so
 ``texture_mode="array"`` (user-supplied content, texture gradients) and the
@@ -46,8 +43,7 @@ def hash01(ix, iy, xp=jnp):
     """Uniform [0,1) float32 from two integer coordinates.
 
     Uses the hash's top 24 bits via an int32 hop: float32 only holds 24
-    mantissa bits anyway, and Mosaic (Pallas TPU) has no uint32->float32
-    cast, so this formulation is exact AND kernel-lowerable — bit-identical
+    mantissa bits anyway, so this formulation is exact and bit-identical
     between the jnp, numpy, and Pallas paths.
     """
     h = _hash2(ix, iy, xp) >> xp.uint32(8)
@@ -55,8 +51,8 @@ def hash01(ix, iy, xp=jnp):
 
 
 def _grad(ix, iy, xp=jnp):
-    """Unit-ish lattice gradient from hash bits — no trig (cos/sin of the
-    hash angle cost ~20 VPU cycles each; two bit-slices + one rsqrt don't).
+    """Unit-ish lattice gradient from hash bits — no trig (two bit-slices
+    + one rsqrt instead of cos/sin of a hash angle).
     The 16-bit slices hop through int32 (see hash01).
     """
     h = _hash2(ix, iy, xp)
@@ -112,8 +108,8 @@ def disk_texel_m(u, v, xp=jnp):
     Continuous version of the bake pipeline (warp evaluated exactly instead
     of via the tool's nearest-pixel remap): uv -> polar, spiral-unwarp
     theta += r^0.5 * pi * amount, then the 50/50 octave merge cascade.
-    Shape-agnostic elementwise math — also runs inside Pallas kernels
-    (bhx.kernels.shade_pallas) on (sublane, lane) planes.
+    Shape-agnostic elementwise math — also runs inside the Pallas shade
+    kernel (bhx.kernels.shade_pallas) on blocks of rays.
     """
     rx = u * 2.0 - 1.0
     ry = v * 2.0 - 1.0
@@ -213,7 +209,7 @@ def sky_radiance_channels(u, v, xp=jnp):
     sub-cell position, power-law brightness, and a blackbody color from
     the tint polynomial.  A sample sums the 3x3 neighbourhood with a
     quadratic splat — pure arithmetic, no gathers, no exp.  Channel-tuple
-    form so the same code runs on Pallas (sublane, lane) planes.
+    form so the same code runs on blocks of rays inside Pallas kernels.
     """
     # --- nebula: two perlin octaves, tinted (matches the baked generator) ---
     neb = (

@@ -208,7 +208,7 @@ class Scene:
     # scene round-trips completely and future shading models can use them.
     materials: Optional[jax.Array] = None
     # Coarse multiplicative RGBA gain over the disk texture's uv square,
-    # sampled gather-free via an MXU hat-basis product (shading.sample_grid_mxu).
+    # sampled gather-free via a hat-basis product (shading.sample_grid_mxu).
     # This is the differentiable disk-texture parameterization of the default
     # (procedural) mode: the procedural texel is pure arithmetic of uv, so
     # the learnable content lives here (default all-ones = identity).  In

@@ -9,6 +9,7 @@ discontinuous decisions (hit/miss) are piecewise-smooth as in the reference.
 
 from __future__ import annotations
 
+import jax
 import jax.numpy as jnp
 
 PI = 3.1415926  # matches the reference constant (ray.wgsl:131)
@@ -51,8 +52,8 @@ def _quad_pack(tex, wrap: bool):
     ``flat[((a*2+b)*k2 + y0//2)*j2 + x0//2]`` holds texels
     (y0, x0), (y0, x0+1), (y0+1, x0), (y0+1, x0+1) for a = y0&1, b = x0&1,
     with clamp-to-edge or wrap addressing at the borders.  One gather row
-    then serves a whole bilinear sample (TPU gathers cost per row, so this
-    is 4x fewer gathers than fetching the corners separately).  Built from
+    then serves a whole bilinear sample (4x fewer gather rows than
+    fetching the corners separately).  Built from
     pad/slice/reshape only — no gathers, cheap streaming inside the jit.
     """
     h, w, c = tex.shape
@@ -87,12 +88,10 @@ def sample_bilinear_fast(tex, u, v, wrap: bool = False):
     """Bilinear sample via quad-packed texture and per-channel 1D gathers.
 
     Same math and addressing as :func:`sample_bilinear` (texel centers at
-    (i + 0.5)/size, clamp or repeat), restructured for TPU memory layout:
-    one shared index computation, then 4*C gathers from *flat 1D planes*.
-    A row gather into (N, 2, 2, C) tiles the trailing C=3/4 dim to 128
-    lanes (42x HBM expansion — at 1080p with 4 disk-crossing slots that is
-    a 15.8 GB temp and an OOM); 1D gathers use T(1024) layout with zero
-    padding and fuse into the weighted-sum consumer.
+    (i + 0.5)/size, clamp or repeat), restructured: one shared index
+    computation, then 4*C gathers from *flat 1D planes* that fuse into the
+    weighted-sum consumer (a row gather into (N, 2, 2, C) would pad the
+    trailing C=3/4 dim when the layout tiles it).
     """
     h, w = tex.shape[0], tex.shape[1]
     c = tex.shape[2]
@@ -134,9 +133,8 @@ def sample_grid_mxu(grid, u, v):
 
     Clamp-addressed bilinear interpolation with texel centers at
     (i + 0.5) / size — identical math to :func:`sample_bilinear` — but
-    expressed as dense hat-basis weights contracted on the MXU instead of
-    corner gathers (TPU gathers run at ~50M samples/s; a (N, G) x (G, G*C)
-    matmul with G<=16 is bandwidth-bound at ~GB/ms).  grid: (Gh, Gw, C);
+    expressed as dense hat-basis weights contracted as two small matmuls
+    instead of corner gathers.  grid: (Gh, Gw, C);
     u, v: (...,) in [0, 1].  Intended for coarse learnable grids like
     ``Scene.disk_gain``; use sample_bilinear_fast for real textures.
     """
@@ -147,8 +145,10 @@ def sample_grid_mxu(grid, u, v):
     iy = jnp.arange(gh, dtype=jnp.float32)
     bx = jnp.maximum(1.0 - jnp.abs(x[..., None] - ix), 0.0)  # (..., Gw)
     by = jnp.maximum(1.0 - jnp.abs(y[..., None] - iy), 0.0)  # (..., Gh)
-    t = jnp.einsum("...h,hwc->...wc", by, grid)
-    return jnp.einsum("...w,...wc->...c", bx, t)
+    # Full float32: a default-precision GPU dot may run in TF32.
+    hi = jax.lax.Precision.HIGHEST
+    t = jnp.einsum("...h,hwc->...wc", by, grid, precision=hi)
+    return jnp.einsum("...w,...wc->...c", bx, t, precision=hi)
 
 
 def smoothstep(e0, e1, x):
@@ -178,7 +178,7 @@ def sample_sky(sky_tex, direction, texture_mode: str = "array"):
     "array": bilinear sample of the stored radiance^(1/4) texture, then ^4
     (reference sky.wgsl:23-26).  "procedural": evaluate the star-grid +
     nebula radiance arithmetically (bhx.procedural) — no gathers, the
-    default hot path on TPU.
+    default.
     """
     if texture_mode == "procedural":
         from bhx.procedural import sky_radiance_dir

@@ -1,7 +1,7 @@
 """The geodesic ray tracer: phase-decomposed, batched, differentiable.
 
 Re-designs the reference's per-pixel megakernel loop (trace_ray,
-ray.wgsl:482-596) into a TPU-shaped pipeline.  The reference interleaves
+ray.wgsl:482-596) into a batched array pipeline.  The reference interleaves
 three very different workloads in one divergent loop:
 
   (a) straight-line scene tests outside the "relativity sphere"
@@ -17,8 +17,8 @@ dense ray batches:
   straight -> [march -> straight] x ROUNDS
 
 Each straight phase is two batched intersections (meshes via
-bhx.geometry.traverse, sphere analytically); each march phase is a pure-VPU
-masked loop with no gathers except the disk-texture sample.  Rays that exit
+bhx.geometry.traverse, sphere analytically); each march phase is an
+elementwise masked loop with no gathers except the disk-texture sample.  Rays that exit
 the sphere re-run a straight phase (which also handles the rare re-entry of
 strongly bent rays — the reference's outside branch does the same,
 ray.wgsl:563-565).
@@ -83,35 +83,13 @@ def camera_rays(camera, width: int, height: int) -> Tuple[jax.Array, jax.Array]:
     return o, d
 
 
-def _march_sublanes(n: int, cfg: RenderConfig) -> int:
-    """Kernel tile height for an n-ray batch: cfg.pallas_sublanes, shrunk
-    for small batches so a coarse ladder level doesn't pay full-width
-    vector ops on mostly-dead pad lanes (L0 is 2952 rays — a 64-sublane
-    tile would run 2000 steps at 64% dead width; a 24-sublane tile does
-    the same marching in ~1/2.7 the cycles).  Always a multiple of 8
-    (the float32 sublane quantum)."""
-    if not cfg.pallas_adaptive_sublanes:
-        return cfg.pallas_sublanes
-    rows = -(-n // 128)
-    return max(8, min(cfg.pallas_sublanes, -(-rows // 8) * 8))
-
-
-def _shade_sublanes(n: int, cfg: RenderConfig) -> int:
-    """Shade/sky kernel tile height: cfg.pallas_shade_sublanes, shrunk to
-    the batch for small inputs (thumbnail tests/viewer frames) so they
-    don't pad to a full 64x128 tile."""
-    rows = -(-n // 128)
-    return max(8, min(cfg.pallas_shade_sublanes, -(-rows // 8) * 8))
-
-
 def _init_state(origins, directions, deferred: bool = False):
     """Canonical tracer state: PER-COMPONENT ROWS (structure-of-arrays).
 
     Every vector quantity is three (n,) rows (px/py/pz, dx/dy/dz, the
     original direction ox/oy/oz, Kerr momentum qx/qy/qz, color cr/cg/cb)
-    — an (n, 3) layout puts the component dim in the TPU lane dimension
-    (3 of 128 lanes used) and forces a relayout at every Pallas kernel
-    boundary; rows keep the march phases stack-free end-to-end.  The jnp
+    — the Pallas kernels consume rows, so the march phases stay
+    stack-free end-to-end.  The jnp
     march modes convert to (n, 3) at their phase boundary only (a few
     stacks per trace, nothing per step).
     """
@@ -320,6 +298,29 @@ def _straight_phase(state, scene: Scene, cfg: RenderConfig, cam_dist):
     return state
 
 
+def march_kernel_config(cfg: RenderConfig):
+    """The march kernel's static config for a render config.  Every round
+    runs the same kernel for ``pallas_round_steps`` steps; the *total*
+    budget rides in the params vector and each lane deactivates itself
+    exactly when its cumulative step count reaches it."""
+    from bhx.kernels.march_pallas import MarchKernelConfig
+
+    return MarchKernelConfig(
+        integrator="euler" if cfg.integrator == Integrator.EULER else "rk45",
+        geodesics=cfg.geodesics,
+        max_iterations=max(
+            1, min(int(cfg.pallas_round_steps), cfg.max_iterations)
+        ),
+        tex_opacity_min=0.7 if (cfg.show_disk_texture and cfg.show_disk) else 1.0,
+        show_disk=cfg.show_disk,
+        vote_every=cfg.pallas_vote_every,
+        unroll=cfg.pallas_unroll,
+        bwd_chunks=cfg.pallas_bwd_chunks,
+        record_guard=cfg.pallas_record_guard,
+        interpret=cfg.march_mode == "pallas_interpret",
+    )
+
+
 def _march_phase_pallas(state, scene: Scene, cfg: RenderConfig, cam_dist,
                         sparse: bool = False, first_phase: bool = True):
     """Pallas-kernel march with deferred shading; no host-side compaction.
@@ -327,15 +328,11 @@ def _march_phase_pallas(state, scene: Scene, cfg: RenderConfig, cam_dist,
     Sparse active sets (the ladder's needs-retrace mask, round >= 2
     re-entries) ride into the kernel as the per-lane activity mask, NOT
     through a gather/scatter compaction: the kernel's while cond votes
-    before the first block, so an all-dead tile costs only its VMEM
-    streaming, and the active set is spatially clustered in image order
-    (the disk/shadow region), so tile-granular early exit already tracks
-    the active count.  Measured at the real 1080p final ladder level
-    (scripts/bisect_l3.py, 14.8%% active): uncompacted kernel 13.5 ms vs
-    262 ms for stable-partition + two full-frame row permutes — TPU row
-    gathers at (N, F) scale are ~400x off HBM roofline, so moving rays
-    costs far more than letting dead lanes stream by (SURVEY.md §7 hard
-    part 1, revised from the round-2 design).
+    before the first step, so an all-dead block costs only its loads and
+    stores, and the active set is spatially clustered in image order
+    (the disk/shadow region), so block-granular early exit already tracks
+    the active count.  Whether a compaction pays on a GPU is an open
+    question (PERF.md).
 
     Multi-round marching (``cfg.pallas_round_steps`` < max_iterations)
     still works: per-ray budgets ride into the kernel (input field 9 +
@@ -349,10 +346,10 @@ def _march_phase_pallas(state, scene: Scene, cfg: RenderConfig, cam_dist,
     """
     from bhx.kernels.march_grad import march_pallas_diff
     from bhx.kernels.march_pallas import (
+        BLOCK,
         CROSS_FIELDS,
         MarchKernelConfig,
         OUT_FIXED,
-        march_pallas,
         pack_params,
     )
 
@@ -361,27 +358,9 @@ def _march_phase_pallas(state, scene: Scene, cfg: RenderConfig, cam_dist,
     n = state["px"].shape[0]
     K = MarchKernelConfig.max_crossings
 
-    round_steps = max(1, min(int(cfg.pallas_round_steps), cfg.max_iterations))
-    n_rounds = -(-cfg.max_iterations // round_steps)
-    # Every round runs the same kernel for round_steps; the *total* budget
-    # rides in the params vector and each lane deactivates itself exactly
-    # when its cumulative step count reaches it.
-    kcfg = MarchKernelConfig(
-        integrator="euler" if cfg.integrator == Integrator.EULER else "rk45",
-        geodesics=cfg.geodesics,
-        max_iterations=round_steps,
-        tex_opacity_min=0.7 if (cfg.show_disk_texture and cfg.show_disk) else 1.0,
-        show_disk=cfg.show_disk,
-        vote_every=cfg.pallas_vote_every,
-        # Tile height shrinks for small batches (coarse ladder levels) so
-        # dead pad lanes don't widen every vector op — see _march_sublanes.
-        sublanes=_march_sublanes(n, cfg),
-        unroll=cfg.pallas_unroll,
-        bwd_chunks=cfg.pallas_bwd_chunks,
-        record_guard=cfg.pallas_record_guard,
-        interpret=cfg.march_mode == "pallas_interpret",
-    )
-    pad = (-n) % kcfg.lanes
+    kcfg = march_kernel_config(cfg)
+    n_rounds = -(-cfg.max_iterations // kcfg.max_iterations)
+    pad = (-n) % BLOCK
     npad = n + pad
 
     params = pack_params(bh, disk_normal, cfg)
@@ -396,7 +375,7 @@ def _march_phase_pallas(state, scene: Scene, cfg: RenderConfig, cam_dist,
     kerr = kcfg.geodesics == "kerr"
     # The tracer state is already rows (structure-of-arrays), the exact
     # tuple-of-rows layout the kernel consumes — no slicing, no stacking,
-    # only the tile padding concat (march_pallas.py layout note).
+    # only the block padding concat (march_pallas.py layout note).
     rows = [
         padded(state["px"]), padded(state["py"]), padded(state["pz"]),
         padded(state["dx"]), padded(state["dy"]), padded(state["dz"]),
@@ -431,9 +410,8 @@ def _march_phase_pallas(state, scene: Scene, cfg: RenderConfig, cam_dist,
         # (bhx.kernels.march_grad), which covers Euler, RK45 (h-carry
         # included) and the Kerr Hamiltonian.
         kernel = march_pallas_diff
-        # Sparse active sets run uncompacted: an all-dead tile's while
-        # cond votes false before its first block, so it costs only VMEM
-        # streaming (see the function docstring for measurements).
+        # Sparse active sets run uncompacted: an all-dead block's while
+        # cond votes false before its first step (see the docstring).
         out = kernel(rs, params, kcfg)
 
         # The kernel PRESERVES inactive lanes (its per-substep applied
@@ -519,7 +497,7 @@ def _march_phase_pallas(state, scene: Scene, cfg: RenderConfig, cam_dist,
             round_cond, round_body, (jnp.int32(0), work)
         )
 
-    # The work state is rows end-to-end — trimming the tile padding is the
+    # The work state is rows end-to-end — trimming the block padding is the
     # only "unpack".
     rs = work["rs"]
     w_px, w_py, w_pz = rs[0][:n], rs[1][:n], rs[2][:n]
@@ -797,15 +775,12 @@ def trace_rays_record_rows(origins, directions, scene: Scene,
     """Trace a flat batch of rays to the sky-free record as a tuple of 8
     (N,) rows: (cr, cg, cb, alpha, amount, dx, dy, dz).
 
-    Rows (structure-of-arrays) are the canonical record layout: a trailing
-    channel dim of 8 lands in the TPU lane dimension (8 of 128 lanes used
-    — every downstream elementwise op pays ~16x its bandwidth), and the
-    Pallas shade/sky kernels consume rows natively, so keeping planes
-    end-to-end avoids every interleave/deinterleave.  Sky is NOT
-    composited — callers apply ``finalize_sky``/``finalize_image`` exactly
-    once per frame (the reference samples sky per trace because GPU texture
-    units are free; on TPU each bilinear costs a gather, so the ladder
-    traces levels sky-free and one final pass touches the sky texture).
+    Rows (structure-of-arrays) are the canonical record layout: the
+    Pallas kernels consume rows natively, so keeping planes end-to-end
+    avoids every interleave/deinterleave.  Sky is NOT composited — callers
+    apply ``finalize_sky``/``finalize_image`` exactly once per frame (the
+    reference samples sky per trace; here the ladder traces levels
+    sky-free and one final pass evaluates the sky).
 
     ``active`` (optional bool (N,)): rays with False are dead lanes that
     produce an escape record untouched; the march kernel's per-lane
@@ -816,15 +791,15 @@ def trace_rays_record_rows(origins, directions, scene: Scene,
     deferred = cfg.march_mode in ("pallas", "pallas_interpret")
     n0 = origins.shape[0]
     if deferred:
-        # Pre-pad the ray batch to a whole number of kernel tiles ONCE, so
-        # every march phase runs with pad == 0 — the per-phase pad concats
-        # were pure HBM copies worth ~17 ms/frame dense at 1080p
-        # (scripts/out/BISECT_MARCH_GLUE.json).  Pad rays repeat the last
+        # Pre-pad the ray batch to a whole number of kernel blocks ONCE, so
+        # every march phase runs with pad == 0 (no per-phase pad copies of
+        # every state row).  Pad rays repeat the last
         # ray (valid math, no NaN hazards) but start dead (active=False ->
         # status 2), so the march kernel's lane mask skips them and no
         # output field needs un-masking beyond the final row trim.
-        lanes = _march_sublanes(n0, cfg) * 128
-        pad = (-n0) % lanes
+        from bhx.kernels.march_pallas import BLOCK
+
+        pad = (-n0) % BLOCK
         if pad:
             origins = jnp.concatenate(
                 [origins, jnp.broadcast_to(origins[-1:], (pad, 3))], axis=0
@@ -857,15 +832,14 @@ def trace_rays_record_rows(origins, directions, scene: Scene,
             # re-tests entry every outside step, ray.wgsl:554-569) are
             # usually EMPTY; gate the whole march phase on any-active so
             # the common case pays one conditional pass-through instead of
-            # a full-frame march phase (~30 ms at 1080p).
+            # a full-frame march phase.
             state = jax.lax.cond(
                 jnp.any(state["status"] == 1), march, lambda s: s, state
             )
     # Rays still wanting a straight phase after the last march get it once
     # more; any that would re-enter yet again are treated as escapes.  In
     # the common case the gated re-entry march above was skipped and NO ray
-    # is in status 0, so the whole pass is gated too (a full-frame straight
-    # phase costs ~4 ms at 1080p; the any-reduce costs ~none).
+    # is in status 0, so the whole pass is gated too.
     state = jax.lax.cond(
         jnp.any(state["status"] == 0),
         lambda s: _straight_phase(s, scene, cfg, cam_dist),
@@ -890,7 +864,7 @@ def trace_rays_record_rows(origins, directions, scene: Scene,
 
     rows = (cr, cg, cb, alpha, amount,
             state["dx"], state["dy"], state["dz"])
-    if state["px"].shape[0] != n0:  # trim the tile pre-pad (pallas modes)
+    if state["px"].shape[0] != n0:  # trim the block pre-pad (pallas modes)
         rows = tuple(r[:n0] for r in rows)
     return rows
 
@@ -946,11 +920,10 @@ def _shade_deferred(state, scene: Scene, cfg: RenderConfig, cam_dist):
     slots (front-to-back via cumprod), then the opaque mesh hit, then
     horizon capture.
 
-    In procedural texture mode the per-slot geometry shading (4-octave
-    Perlin texel, blackbody tint, optical depth) runs as a Pallas kernel
-    with tile-level skipping of crossing-free tiles
-    (bhx.kernels.shade_pallas); the composite — including the learnable
-    ``disk_gain`` grid — stays jnp and differentiable.
+    In procedural texture mode the per-slot shading (4-octave Perlin
+    texel, blackbody tint, optical depth, ``disk_gain``) and the composite
+    run as one Pallas kernel (bhx.kernels.shade_pallas) with a
+    recompute-through-jnp backward.
     """
     from bhx.kernels.march_pallas import CROSS_FIELDS
 
@@ -974,7 +947,6 @@ def _shade_deferred(state, scene: Scene, cfg: RenderConfig, cam_dist):
                 max_crossings=K,
                 show_texture=cfg.show_disk_texture,
                 show_redshift=cfg.show_redshift,
-                sublanes=_shade_sublanes(n, cfg),
                 interpret=cfg.march_mode == "pallas_interpret",
             )
             params = pack_shade_params(bh, rot_mat, scene.time)

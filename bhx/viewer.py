@@ -2,7 +2,7 @@
 
 The reference is a winit event loop + egui settings windows + WASD/mouse
 camera controller (src/app.rs, src/ui/*, src/input_manager.rs,
-src/scene/mod.rs:38-81).  A TPU renderer lives in a datacenter, so the
+src/scene/mod.rs:38-81).  A GPU renderer in a datacenter has no window, so the
 interactive surface is a small HTTP server: the browser sends camera/setting
 state, the server renders a frame (jitted; re-rendering reuses the compiled
 graph as long as static settings don't change) and returns a PNG.
@@ -16,7 +16,6 @@ Controls (mirroring the reference):
 from __future__ import annotations
 
 import dataclasses
-import io as _io
 import json
 import threading
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
@@ -175,10 +174,9 @@ class ViewerServer:
 
     def __init__(self, width=480, height=270, max_iterations=800,
                  march_mode="auto"):
-        if march_mode == "auto":
-            import jax
+        from bhx.config import resolve_march_mode
 
-            march_mode = "pallas" if jax.default_backend() == "tpu" else "fast"
+        march_mode = resolve_march_mode(march_mode)
         self.width = width
         self.height = height
         self.max_iterations = max_iterations
@@ -324,11 +322,9 @@ class ViewerServer:
                 "frame_s": round(dt, 3),
             }
             self.last_stats = stats
-        from PIL import Image
+        from bhx.io import encode_png
 
-        buf = _io.BytesIO()
-        Image.fromarray(img).save(buf, format="PNG")
-        return buf.getvalue(), stats
+        return encode_png(img), stats
 
     def overflow_stats(self, req: dict) -> dict:
         """K-slot crossing-drop accounting for the current settings

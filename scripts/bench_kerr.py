@@ -1,9 +1,6 @@
 #!/usr/bin/env python
-"""Kerr on-chip bench artifact (VERDICT r3 missing #3 / next #4a).
-
-Runs the full 1080p pipeline with geodesics="kerr" (spin 0.9) on the
-Pallas kernel path and writes BENCH_KERR.json next to the round bench
-artifacts.  Round-2 bar: >= 25%% of the pseudo-Newtonian throughput.
+"""Kerr bench on one GPU: the full 1080p pipeline with geodesics="kerr"
+(spin 0.9) on the Pallas kernel path; writes chiprun_out/BENCH_KERR.json.
 """
 
 import json
@@ -13,7 +10,7 @@ import sys
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import bhx
 
-bhx.enable_compile_cache()  # persistent XLA/Mosaic cache (explicit opt-in)
+bhx.enable_compile_cache()  # persistent XLA compile cache (explicit opt-in)
 
 
 
@@ -27,8 +24,10 @@ def main():
         "(Hamiltonian RK4 in the march kernel), spin 0.9; the reference "
         "has no Kerr at all (its force is ray.wgsl:401-403)"
     )
-    path = os.path.join(os.path.dirname(os.path.dirname(
-        os.path.abspath(__file__))), "BENCH_KERR.json")
+    odir = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "chiprun_out")
+    os.makedirs(odir, exist_ok=True)
+    path = os.path.join(odir, "BENCH_KERR.json")
     with open(path, "w") as fh:
         json.dump(out, fh, indent=1)
     print(json.dumps(out))

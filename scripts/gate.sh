@@ -1,16 +1,12 @@
 #!/bin/bash
-# Snapshot gate (VERDICT r2/r3 ask): run this before committing a round
-# snapshot.  Exits nonzero unless:
-#   1. the fast suite is green,
-#   2. the load-bearing slow subset is green (kernel<->jnp parity for all
-#      three integrators, kernel-path gradients, sharding identity),
-#   3. the on-chip bench runs AND its pallas<->jnp parity check passes.
-#
-# The full slow suite (~22 tests, >10 min of CPU compiles) is NOT required
-# per snapshot — this subset is exactly the set whose breakage shipped the
-# round-2 regression.  Each stage's result is recorded in
-# scripts/out/GATE.json (VERDICT r4 weak #7: commit the gate's output so a
-# judge can tell the gate ran green).  Usage:  bash scripts/gate.sh [--no-bench]
+# Snapshot gate: run this before committing.  Exits nonzero unless
+#   1. the fast suite is green (CPU),
+#   2. the load-bearing slow subset is green (CPU: kernel<->jnp parity for
+#      all three integrators in interpret mode, kernel-path gradients,
+#      sharding identity),
+#   3. chip_smoke.py passes on the GPU (skipped with --no-chip).
+# Each stage's result is written to scripts/out/GATE.json (not committed).
+# Usage:  bash scripts/gate.sh [--no-chip]
 set -uo pipefail
 cd "$(dirname "$0")/.."
 mkdir -p scripts/out
@@ -35,9 +31,10 @@ run_stage() {
 }
 
 FAIL=0
-run_stage "fast_suite" python -m pytest tests/ -q -m "not slow" -x || FAIL=1
+JAX_PLATFORMS=cpu run_stage "fast_suite" \
+  python -m pytest tests/ -q -m "not slow" -x || FAIL=1
 
-run_stage "slow_subset" python -m pytest -q -x \
+JAX_PLATFORMS=cpu run_stage "slow_subset" python -m pytest -q -x \
   "tests/test_pallas.py::test_pallas_euler_matches_jnp" \
   "tests/test_pallas.py::test_pallas_rk45_matches_jnp" \
   "tests/test_pallas.py::test_pallas_kerr_matches_jnp" \
@@ -45,24 +42,16 @@ run_stage "slow_subset" python -m pytest -q -x \
   "tests/test_dist.py::test_sharded_trace_matches_single_device" \
   "tests/test_dist.py::test_sharded_pallas_interpret_matches_single_device" || FAIL=1
 
-if [[ "${1:-}" == "--no-bench" ]]; then
-  STAGE_RC[bench]=-1
-  STAGE_SUMMARY[bench]="SKIPPED (--no-bench)"
-  STAGE_S[bench]=0
-  echo "=== gate: bench SKIPPED (--no-bench) ==="
+if [[ "${1:-}" == "--no-chip" ]]; then
+  STAGE_RC[chip_smoke]=-1
+  STAGE_SUMMARY[chip_smoke]="SKIPPED (--no-chip)"
+  STAGE_S[chip_smoke]=0
+  echo "=== gate: chip_smoke SKIPPED (--no-chip) ==="
 else
-  run_stage "bench" python - <<'PY' || FAIL=1
-import json
-from bhx.bench import run_bench, parity_check
-r = run_bench(iters=3)
-p = parity_check()
-r.update(p)
-print(json.dumps(r))
-assert p["parity_ok"], "on-chip pallas<->jnp parity gate FAILED"
-PY
+  run_stage "chip_smoke" python chip_smoke.py || FAIL=1
 fi
 
-for name in fast_suite slow_subset bench; do
+for name in fast_suite slow_subset chip_smoke; do
   export "GATE_RC_${name}=${STAGE_RC[$name]:-1}"
   export "GATE_SUMMARY_${name}=${STAGE_SUMMARY[$name]:-}"
   export "GATE_S_${name}=${STAGE_S[$name]:-0}"
@@ -76,7 +65,7 @@ stages = {
         summary=os.environ[f"GATE_SUMMARY_{name}"].strip(),
         wall_s=int(os.environ[f"GATE_S_{name}"]),
     )
-    for name in ("fast_suite", "slow_subset", "bench")
+    for name in ("fast_suite", "slow_subset", "chip_smoke")
 }
 out = dict(
     green=not int(os.environ["GATE_FAIL"]),

@@ -13,7 +13,7 @@ import sys
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import bhx
 
-bhx.enable_compile_cache()  # persistent XLA/Mosaic cache (explicit opt-in)
+bhx.enable_compile_cache()  # persistent XLA compile cache (explicit opt-in)
 
 
 

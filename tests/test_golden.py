@@ -133,8 +133,8 @@ if __name__ == "__main__":
 
     if "--regen" in sys.argv:
         # Goldens are CPU snapshots (the suite runs on CPU — conftest.py);
-        # force the same platform here so a regen run on a TPU box doesn't
-        # bake device-specific numerics into the files.
+        # force the same platform here so a regen run on a GPU machine
+        # doesn't bake device-specific numerics into the files.
         flags = os.environ.get("XLA_FLAGS", "")
         if "xla_force_host_platform_device_count" not in flags:
             os.environ["XLA_FLAGS"] = (

@@ -165,7 +165,7 @@ def test_grad_wrt_mass_ladder_on():
         CFG, use_ladder=True, width=40, height=23,
         ladder=LadderConfig(base=(14, 9), multiplier=3, levels=2),
         max_iterations=128, march_mode="pallas_interpret",
-        pallas_vote_every=4, pallas_sublanes=8, pallas_unroll=4,
+        pallas_vote_every=4, pallas_unroll=4,
     )
     img_f = _image_fn(upd, cfg)
     rng = np.random.default_rng(3)

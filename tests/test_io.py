@@ -4,8 +4,17 @@ import os
 import tempfile
 
 import numpy as np
+import pytest
 
-from bhx.io import load_image, load_scene, save_png, save_scene, to_uint8
+from bhx.io import (
+    decode_png,
+    encode_png,
+    load_image,
+    load_scene,
+    save_png,
+    save_scene,
+    to_uint8,
+)
 from tests.common import cube_mesh, small_scene
 
 
@@ -16,6 +25,64 @@ def test_png_roundtrip():
         save_png(p, img)
         back = load_image(p)
     np.testing.assert_allclose(back, img, atol=1 / 255 + 1e-6)
+
+
+@pytest.mark.parametrize("channels", [1, 2, 3, 4])
+def test_png_codec_roundtrip_exact(channels):
+    """encode_png -> decode_png is lossless for every 8-bit layout."""
+    img = np.random.default_rng(channels).integers(
+        0, 256, (7, 5, channels), dtype=np.uint8
+    )
+    png = encode_png(img)
+    assert png[:8] == b"\x89PNG\r\n\x1a\n"
+    np.testing.assert_array_equal(decode_png(png), img)
+
+
+def _filtered_png(img: np.ndarray) -> bytes:
+    """Encode with scanline filters Sub/Up/Average/Paeth in turn (what
+    other encoders write), so decode_png's unfilter paths are exercised."""
+    import struct
+    import zlib
+
+    h, w, c = img.shape
+    rows = img.reshape(h, w * c).astype(np.int32)
+    out = bytearray()
+    for y in range(h):
+        ftype = 1 + y % 4
+        cur = rows[y]
+        prev = rows[y - 1] if y else np.zeros_like(cur)
+        line = []
+        for x in range(w * c):
+            left = cur[x - c] if x >= c else 0
+            ul = prev[x - c] if x >= c else 0
+            up = prev[x]
+            if ftype == 1:
+                pred = left
+            elif ftype == 2:
+                pred = up
+            elif ftype == 3:
+                pred = (left + up) >> 1
+            else:
+                pa, pb, pc = abs(up - ul), abs(left - ul), abs(left + up - 2 * ul)
+                pred = left if pa <= pb and pa <= pc else (up if pb <= pc else ul)
+            line.append((cur[x] - pred) & 0xFF)
+        out += bytes([ftype] + line)
+
+    def chunk(tag, data):
+        return (struct.pack(">I", len(data)) + tag + data
+                + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
+
+    ihdr = struct.pack(">IIBBBBB", w, h, 8, {3: 2, 4: 6}[c], 0, 0, 0)
+    return (b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", ihdr)
+            + chunk(b"IDAT", zlib.compress(bytes(out))) + chunk(b"IEND", b""))
+
+
+@pytest.mark.parametrize("channels", [3, 4])
+def test_png_decode_all_scanline_filters(channels):
+    img = np.random.default_rng(9).integers(
+        0, 256, (9, 6, channels), dtype=np.uint8
+    )
+    np.testing.assert_array_equal(decode_png(_filtered_png(img)), img)
 
 
 def test_uint8_conversion_rounds():

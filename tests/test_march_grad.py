@@ -21,7 +21,7 @@ from tests.common import small_scene
 def _setup(n=256, max_iter=64):
     kcfg = MarchKernelConfig(
         integrator="euler", max_iterations=max_iter, interpret=True,
-        sublanes=2, vote_every=8, unroll=4,
+        vote_every=8, unroll=4,
     )
     rng = np.random.default_rng(7)
     pos = rng.normal(size=(n, 3)).astype(np.float32)

@@ -170,3 +170,28 @@ def test_frame_report_api():
     assert "dense trace" in rep and "sky finalize" in rep
     assert "full frame" in rep and rep["full frame"] >= 0.0
     assert rep["mrays_per_s"] > 0
+
+
+@pytest.mark.parametrize("texture_mode", ["procedural", "array"])
+def test_finalize_rows_matches_interleaved(texture_mode):
+    """The frame's one sky pass (rows variant, every march mode) equals
+    the interleaved finalize_image on the same record."""
+    import jax.numpy as jnp
+
+    from bhx.tracer import finalize_image, finalize_image_rows
+
+    scene = small_scene()
+    rng = np.random.default_rng(4)
+    rec = rng.uniform(0, 1, (300, 8)).astype(np.float32)
+    d = rng.normal(size=(300, 3)).astype(np.float32)
+    rec[:, 5:8] = d / np.linalg.norm(d, axis=-1, keepdims=True)
+    rec = jnp.asarray(rec)
+    rows = finalize_image_rows(
+        tuple(rec[:, i] for i in range(8)), scene.sky_texture, True,
+        texture_mode,
+    )
+    ref = finalize_image(rec, scene.sky_texture, True, texture_mode)
+    np.testing.assert_allclose(
+        np.stack([np.asarray(r) for r in rows], -1), np.asarray(ref),
+        atol=1e-5,
+    )

@@ -20,11 +20,9 @@ def _server(march_mode="fast", w=64, h=36):
 
 
 def _decode(png_bytes):
-    import io
+    from bhx.io import decode_png
 
-    from PIL import Image
-
-    return np.asarray(Image.open(io.BytesIO(png_bytes)))
+    return decode_png(png_bytes)
 
 
 BASE_REQ = {
